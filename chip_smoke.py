@@ -5,13 +5,24 @@
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/csrc``,
 builds a paper-size index on the host (H&M scale: 105,100 x 2048, 24
-categorical fields plus two OR fields and a timestamp field), holds each
-kernel against its plain PyTorch version on the card at the shapes the
-search path gives it, then drives the fused filtered search
-(``BatchedEngine(device="cuda").search``) on conjunctive, OR and range
-batches and checks the results: every id passes its predicate, no
-duplicates, at most k per query, every kernel launched, and the card's
-answers agree with the host engine's on the same batches.
+categorical fields plus two OR fields and a timestamp field; 1,344 more
+rows of the same corpus are held out for ingest), holds each of the five
+kernels against its plain PyTorch version on the card at the shapes its
+path gives it, and then drives three paths, each with the launch counts
+cleared just before it and read just after:
+
+* the kernel/plain-version parity gate (``kernels.parity.parity_gate``),
+  the path of K4 ``filter_eval`` and K5 ``fiber_expand``;
+* the fused filtered search (``BatchedEngine(device="cuda").search``) on
+  conjunctive, OR and range batches: every id passes its predicate, no
+  duplicates, at most k per query, and the card's answers agree with the
+  host engine's on the same batches;
+* the live index: a capacity-slab engine over the same index ingests the
+  held-out rows in batches of 64, 256 and 1,024 with deferred repair, the
+  maintenance loop drains the backlog, a batch of rows is deleted, and
+  every inserted row must be findable, no deleted or unwritten row may
+  come back, and the post-churn ids must agree with the same state
+  searched on the host.
 
 Prints the kernels' timings as one JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -39,6 +50,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
 N_PAPER = 105_100   # H&M corpus rows (paper size)
+N_INSERT = 64 + 256 + 1024   # held-out rows, ingested in these batches
+INSERT_BATCHES = (64, 256, 1024)
+N_DELETE = 256      # rows the live-index phase deletes
 D = 2048
 N_FIELDS = 24
 K = 10              # results per query
@@ -90,16 +104,23 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 
 def build_corpus(log):
+    """The corpus (N_PAPER + N_INSERT rows, one recipe), the index over
+    its first N_PAPER rows, and the held-out rows (vectors, metadata)."""
     from repro_torch.core.atlas import AnchorAtlas
     from repro_torch.core.config import FnsConfig
     from repro_torch.core.graph import build_alpha_knn
     from repro_torch.core.search import FiberIndex
+    from repro_torch.core.types import Dataset
     from repro_torch.data.synth import (SynthSpec, add_or_pair_fields,
                                         add_timestamp_field, make_dataset)
     t0 = time.time()
-    ds = make_dataset(SynthSpec(n=N_PAPER, d=D, n_fields=N_FIELDS,
-                                n_components=350, seed=0))
-    ds = add_timestamp_field(add_or_pair_fields(ds))
+    full = make_dataset(SynthSpec(n=N_PAPER + N_INSERT, d=D,
+                                  n_fields=N_FIELDS, n_components=350,
+                                  seed=0))
+    full = add_timestamp_field(add_or_pair_fields(full))
+    ds = Dataset(full.vectors[:N_PAPER], full.metadata[:N_PAPER],
+                 full.field_names, full.vocab_sizes)
+    held = (full.vectors[N_PAPER:], full.metadata[N_PAPER:])
     t1 = time.time()
     graph = build_alpha_knn(ds.vectors, config=FnsConfig())
     t2 = time.time()
@@ -107,8 +128,8 @@ def build_corpus(log):
     t3 = time.time()
     log("host_build", data_s=t1 - t0, graph_s=t2 - t1, atlas_s=t3 - t2,
         n=ds.n, d=ds.d, fields=ds.n_fields, graph_width=graph.r_pad,
-        clusters=atlas.n_clusters)
-    return ds, FiberIndex(ds.vectors, ds.metadata, graph, atlas)
+        clusters=atlas.n_clusters, held_out=held[0].shape[0])
+    return ds, FiberIndex(ds.vectors, ds.metadata, graph, atlas), held
 
 
 def make_batches(ds):
@@ -131,17 +152,17 @@ def make_batches(ds):
 
 
 def kernel_phases(ds, index, batches, dev, flush, log):
-    """Each kernel against its plain version on the card at the search
-    path's shapes; returns the per-kernel records (launches filled in
-    later from the main path's run)."""
+    """Each kernel against its plain version on the card at its path's
+    shapes; returns the per-kernel records (launches filled in later from
+    the paths' runs)."""
     import numpy as np
     import torch
-    from repro_torch.core.batched.bitmap import n_words, pack_bits
+    from repro_torch.core.batched.bitmap import n_words, pack_bits, popcount
     from repro_torch.core.batched.engine import pack_query_batch
     from repro_torch.core.device_atlas import auto_v_cap
     from repro_torch.kernels import fiber_expand, filter_eval
     from repro_torch.kernels import masked_cosine_topk as mct
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.filter_eval import table_n_disj
 
     vocab = ds.vocab_sizes
@@ -298,7 +319,113 @@ def kernel_phases(ds, index, batches, dev, flush, log):
         library_ms=m["library_ms"])
     log("K3", ok=True, **{f"{lbl}_{k}": v for lbl, r in k3.items()
                           for k, v in r.items()})
+
+    # K4: one conjunctive query over the whole metadata, C=4, v_cap=256
+    pred = max((q.predicate for q in conj), key=lambda p: p.n_clauses)
+    f_np, a_np = ops.predicate_tables(pred, meta.shape[1], max_clauses=4,
+                                      v_cap=256)
+    fields1 = torch.from_numpy(f_np).to(dev)
+    allowed1 = torch.from_numpy(a_np).to(dev)
+    got = filter_eval.filter_eval(meta, fields1, allowed1)
+    want = ref.filter_eval(meta, fields1, allowed1)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "K4: kernel != plain (bits differ)")
+    active = int((fields1 >= 0).sum())
+    n_bytes = meta.numel() * 4 + f_np.nbytes + a_np.nbytes + W * 4
+    b_ms, b_by = bound(n_bytes, 4.0 * meta.shape[0] * active)
+    records["filter_eval"] = dict(
+        name="filter_eval", route="cuda", ok=True,
+        source="src/repro_torch/kernels/csrc/filter_eval.cu",
+        replaces="src/repro/kernels/filter_eval.py:276", launches=0,
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: filter_eval.filter_eval(meta, fields1, allowed1),
+                   50, flush),
+        plain_ms=cuda_ms(lambda: ref.filter_eval(meta, fields1, allowed1),
+                         10, flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log("K4", active_clauses=active, pass_rows=int(popcount(got)),
+        **records["filter_eval"])
+
+    # K5: the K2 shapes (Q=256, R=96, d=2048), one pass-masked output
+    s_k = fiber_expand.fiber_expand(q_vecs, vectors, ids, pass_bm)
+    s_p = ref.fiber_expand(q_vecs, vectors, ids, pass_bm)
+    torch.cuda.synchronize()
+    check(torch.equal(torch.isneginf(s_k), torch.isneginf(s_p)),
+          "K5: -inf positions differ")
+    fin = torch.isfinite(s_p)
+    err = float((s_k[fin] - s_p[fin]).abs().max()) if fin.any() else 0.0
+    check(err <= 1e-4, f"K5: max abs err {err} > 1e-4")
+    n_pass = int(fin.sum())
+    pass_rows = int(torch.unique(ids[fin]).numel())
+    # the kernel reads a row only where its pass bit is set
+    n_bytes = (q_vecs.numel() * 4 + ids.numel() * 4 + n_valid * 4
+               + pass_rows * D * 4 + ids.numel() * 4)
+    b_ms, b_by = bound(n_bytes, 2.0 * D * n_pass)
+    ok_mask = ref.fiber_expand(q_vecs, vectors, ids, pass_bm).isfinite()
+
+    def k5_library():
+        rows = vectors.index_select(0, safe).view(Q_KERNEL, R, D)
+        sims = torch.bmm(rows, q_vecs.unsqueeze(2)).squeeze(2)
+        return torch.where(ok_mask, sims, float("-inf"))
+
+    records["fiber_expand"] = dict(
+        name="fiber_expand", route="cuda", ok=True,
+        source="src/repro_torch/kernels/csrc/fiber_expand.cu",
+        replaces="src/repro/kernels/fiber_expand.py:91", launches=0,
+        max_abs_err=err,
+        ms=cuda_ms(lambda: fiber_expand.fiber_expand(
+            q_vecs, vectors, ids, pass_bm), 50, flush),
+        plain_ms=cuda_ms(lambda: ref.fiber_expand(
+            q_vecs, vectors, ids, pass_bm), 20, flush),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(k5_library, 20, flush))
+    log("K5", R=R, valid_ids=n_valid, passing_ids=n_pass,
+        distinct_passing_rows=pass_rows, **records["fiber_expand"])
     return records
+
+
+# the kernels each driven path must launch
+SEARCH_KERNELS = ("filter_eval_batch", "fiber_expand_walk",
+                  "masked_cosine_topk")
+GATE_KERNELS = ("filter_eval", "fiber_expand")
+
+
+def path_launches(path: str, kernels, log) -> dict:
+    """The launch counts a path left (cleared just before it); fails if a
+    kernel of the path never launched."""
+    from repro_torch.kernels import build
+    launches = dict(build.LAUNCHES)
+    for name in kernels:
+        check(launches.get(name, 0) > 0, f"{path} never launched {name}")
+    log(f"{path}_launches", **launches)
+    return launches
+
+
+def check_results(name, ids, masks, allowed_ids=None):
+    """Per query: at most k ids, no duplicates, each passes its predicate
+    (``masks[qi]`` over the corpus) and, where given, lies in
+    ``allowed_ids``."""
+    import numpy as np
+    for qi, row in enumerate(ids):
+        check(row.size <= K, f"{name}[{qi}]: more than k results")
+        check(np.unique(row).size == row.size, f"{name}[{qi}]: dupes")
+        check(bool(masks[qi][row].all()),
+              f"{name}[{qi}]: a result fails its predicate")
+        if allowed_ids is not None:
+            check(bool(np.isin(row, allowed_ids).all()),
+                  f"{name}[{qi}]: a deleted or unwritten row came back")
+
+
+def parity_path(log) -> dict:
+    """The port's kernel/plain-version parity gate on the card (the path
+    that runs K4 and K5); any mismatch raises."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.parity import parity_gate
+    build.LAUNCHES.clear()
+    t = time.time()
+    parity_gate("cuda")
+    log("parity_gate", ok=True, s=time.time() - t)
+    return path_launches("parity_gate", SEARCH_KERNELS + GATE_KERNELS, log)
 
 
 def ground_truth(ds, queries, dev):
@@ -323,15 +450,14 @@ def main_path(ds, index, batches, dev, card, log, profile_into=None):
     from repro_torch.core.batched.engine import BatchedEngine
     from repro_torch.core.config import FnsConfig, WalkConfig
     from repro_torch.data.ground_truth import recall_at_k
-    from repro_torch.kernels import fiber_expand, filter_eval
-    from repro_torch.kernels import masked_cosine_topk as mct
+    from repro_torch.kernels import build
 
     cfg = FnsConfig(walk=WalkConfig(k=K))
     t0 = time.time()
     eng = BatchedEngine(index, cfg, device=dev, vocab_sizes=ds.vocab_sizes)
     log("engine_build", s=time.time() - t0)
     gts = {name: ground_truth(ds, qs, dev) for name, qs in batches.items()}
-    filter_eval.launches = fiber_expand.launches = mct.launches = 0
+    build.LAUNCHES.clear()
     results = {}
     for name, qs in batches.items():
         eng.search(qs)                      # warm-up (allocator, cuBLAS)
@@ -340,11 +466,7 @@ def main_path(ds, index, batches, dev, card, log, profile_into=None):
         ids, stats = eng.search(qs)
         ms = (time.time() - t) * 1e3
         gt, masks = gts[name]
-        for qi, row in enumerate(ids):
-            check(row.size <= K, f"{name}[{qi}]: more than k results")
-            check(np.unique(row).size == row.size, f"{name}[{qi}]: dupes")
-            check(bool(masks[qi][row].all()),
-                  f"{name}[{qi}]: a result fails its predicate")
+        check_results(name, ids, masks)
         rec = float(np.mean([recall_at_k(r, g) for r, g in zip(ids, gt)]))
         results[name] = dict(ids=ids, stats=stats)
         log("search", batch=name, Q=len(qs), ms_per_batch=ms,
@@ -352,12 +474,7 @@ def main_path(ds, index, batches, dev, card, log, profile_into=None):
             mean_walks=float(stats["walks"].mean()),
             mean_hops=float(stats["hops"].mean()), syncs=stats["syncs"],
             card=card)
-    launches = {"filter_eval_batch": filter_eval.launches,
-                "fiber_expand_walk": fiber_expand.launches,
-                "masked_cosine_topk": mct.launches}
-    for name, n in launches.items():
-        check(n > 0, f"main path never launched {name}")
-    log("main_path_launches", **launches)
+    launches = path_launches("search", SEARCH_KERNELS, log)
     if profile_into is not None:
         from torch.profiler import ProfilerActivity, profile
         qs = batches["conj_q64"]
@@ -403,6 +520,178 @@ def host_comparison(index, ds, batches, card_res, log):
               f"{name}: card vs host id-set overlap {mean:.4f} < 0.98")
 
 
+def own_queries(vectors, metadata):
+    """One query per row: the row's own vector and the conjunction of its
+    first two populated categorical codes (the row passes it)."""
+    from repro_torch.core.types import FilterPredicate, Query
+    out = []
+    for v, m in zip(vectors, metadata):
+        fields = [f for f in range(N_FIELDS) if m[f] >= 0][:2]
+        out.append(Query(vector=v, predicate=FilterPredicate.make(
+            {f: [int(m[f])] for f in fields})))
+    return out
+
+
+def live_index(ds, index, held, batches, dev, card, log) -> dict:
+    """The live-index path: a capacity-slab engine over the smoke's index
+    ingests the held-out rows (deferred repair), the maintenance loop
+    drains the backlog, a batch of rows is deleted, and the churned index
+    is searched. Returns the path's launch counts."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.core.atlas import AnchorAtlas
+    from repro_torch.core.batched.engine import BatchedEngine
+    from repro_torch.core.config import FnsConfig, WalkConfig
+    from repro_torch.core.search import FiberIndex
+    from repro_torch.core.types import FilterPredicate, Query
+    from repro_torch.data.ground_truth import recall_at_k
+    from repro_torch.kernels import build
+    from repro_torch.serve.maintenance import MaintenanceLoop
+
+    # the 24 categorical and 2 OR fields: the insert path refuses codes at
+    # or above the atlas value range (v_cap <= 1024), and the timestamp
+    # field's codes reach 2^20. Same graph and clusters, atlas re-derived
+    # for these fields.
+    n_f = N_FIELDS + 2
+    meta = np.ascontiguousarray(ds.metadata[:, :n_f])
+    vocab = tuple(ds.vocab_sizes[:n_f])
+    held_v, held_m = held[0], np.ascontiguousarray(held[1][:, :n_f])
+    atlas = AnchorAtlas.from_assignment(index.atlas.centroids,
+                                        index.atlas.assign, meta)
+    cfg = FnsConfig(walk=WalkConfig(k=K)).with_knobs(
+        {"serve.capacity": N_PAPER + N_INSERT,
+         "maintenance.defer_repair": True})
+    t = time.time()
+    eng = BatchedEngine(FiberIndex(ds.vectors, meta, index.graph, atlas),
+                        cfg, device=dev, vocab_sizes=vocab)
+    torch.cuda.synchronize()
+    log("live_engine_build", s=time.time() - t, capacity=N_PAPER + N_INSERT,
+        graph_width=int(eng.adjacency.shape[1]))
+    rng = np.random.default_rng(2)
+    # the unconstrained predicate before any insert: the unwritten tail
+    # must never surface
+    free = [Query(vector=v, predicate=FilterPredicate.make({}))
+            for v in held_v[rng.choice(N_INSERT, 64, replace=False)]]
+
+    def timed_search(qs):
+        """Warm-up + timed search; returns ids, stats and ms."""
+        eng.search(qs)
+        torch.cuda.synchronize()
+        t = time.time()
+        ids, stats = eng.search(qs)
+        return ids, stats, (time.time() - t) * 1e3
+
+    build.LAUNCHES.clear()
+    ids = eng.search(free)[0]
+    check_results("unconstrained/pre-insert", ids,
+                  np.ones((len(free), N_PAPER + N_INSERT), bool),
+                  np.arange(N_PAPER))
+
+    inserted, off = [], 0
+    for b in INSERT_BATCHES:
+        torch.cuda.synchronize()
+        t = time.time()
+        inserted.append(eng.insert_batch(held_v[off:off + b],
+                                         held_m[off:off + b]))
+        torch.cuda.synchronize()
+        dt = time.time() - t
+        off += b
+        log("insert", batch=b, ms=dt * 1e3, rows_per_s=b / dt, card=card)
+    inserted = np.concatenate(inserted)
+    check(np.array_equal(inserted, np.arange(N_PAPER, N_PAPER + N_INSERT)),
+          "inserted gids are not the appended rows")
+    loop = MaintenanceLoop(eng, eng.cfg.maintenance)
+    t = time.time()
+    drained = loop.run_until_idle()
+    torch.cuda.synchronize()
+    log("maintenance", ms=(time.time() - t) * 1e3, card=card, **drained,
+        **{k: v for k, v in eng.insert_stats.items()
+           if k in ("reclusters", "reverse_edge_repairs")})
+    check(loop.idle and eng.state.pending_rows == 0, "backlog not drained")
+    t = time.time()
+    eng.refresh_device()
+    torch.cuda.synchronize()
+    log("refresh_from_slab", ms=(time.time() - t) * 1e3,
+        slab_mb=eng.vectors.numel() * 4 / 2**20, card=card)
+
+    dead = np.sort(np.concatenate([
+        rng.choice(inserted, N_DELETE // 2, replace=False),
+        rng.choice(N_PAPER, N_DELETE // 2, replace=False)]))
+    torch.cuda.synchronize()
+    t = time.time()
+    check(eng.delete_batch(dead) == N_DELETE, "delete count")
+    torch.cuda.synchronize()
+    log("delete", rows=N_DELETE, ms=(time.time() - t) * 1e3, card=card)
+
+    sh = eng.state.shards[0]
+    live_rows = np.nonzero(sh.live)[0]
+    live_gids = sh.global_ids[live_rows]
+    all_meta = sh.metadata
+
+    def masks_of(qs):
+        return np.stack([q.predicate.mask(all_meta, vocab) for q in qs])
+
+    # every surviving inserted row is found by its own vector + codes
+    keep = np.setdiff1d(inserted, dead)
+    found = 0
+    for lo in range(0, keep.size, Q_KERNEL):
+        rows = keep[lo:lo + Q_KERNEL]
+        qs = own_queries(sh.vectors[rows], all_meta[rows])
+        ids = eng.search(qs)[0]
+        check_results("findable", ids, masks_of(qs), live_gids)
+        found += sum(int(g) in r.tolist() for g, r in zip(rows, ids))
+    check(found == keep.size,
+          f"only {found}/{keep.size} inserted rows findable")
+    # deleted rows never come back: not to their own vector and codes,
+    # not to the unconstrained predicate
+    dqs = own_queries(sh.vectors[dead], all_meta[dead])
+    for name, qs in (("deleted/own", dqs),
+                     ("deleted/unconstrained",
+                      [Query(vector=q.vector,
+                             predicate=FilterPredicate.make({}))
+                       for q in dqs])):
+        ids = eng.search(qs)[0]
+        check_results(name, ids, masks_of(qs), live_gids)
+
+    # the post-churn conjunctive batch: timing, recall over the live rows
+    qs = batches["conj_q64"]
+    ids, stats, ms = timed_search(qs)
+    masks = masks_of(qs)
+    check_results("post_churn", ids, masks, live_gids)
+    vecs = torch.from_numpy(sh.vectors[live_rows]).to(dev)
+    q_vecs = torch.from_numpy(np.stack([q.vector for q in qs])).to(dev)
+    scores = torch.where(torch.from_numpy(masks[:, live_rows]).to(dev),
+                         q_vecs @ vecs.T, float("-inf"))
+    top_s, top_i = torch.sort(scores, dim=1, descending=True, stable=True)
+    top_s, top_i = top_s[:, :K].cpu().numpy(), top_i[:, :K].cpu().numpy()
+    gts = [live_gids[i[np.isfinite(s)]] for s, i in zip(top_s, top_i)]
+    rec = float(np.mean([recall_at_k(r, g) for r, g in zip(ids, gts)]))
+    launches = path_launches("live_index", SEARCH_KERNELS, log)
+    log("post_churn", Q=len(qs), ms_per_batch=ms, qps=len(qs) / ms * 1e3,
+        recall_at_10=rec, mean_walks=float(stats["walks"].mean()),
+        mean_hops=float(stats["hops"].mean()), syncs=stats["syncs"],
+        findable=f"{found}/{keep.size}", card=card)
+
+    # the same churned state on the host: id-set overlap
+    t = time.time()
+    host = BatchedEngine.from_state(copy.deepcopy(eng.state), eng.cfg,
+                                    device="cpu", vocab_sizes=eng.vocab_sizes)
+    h_ids, _ = host.search(qs)
+    overlap = [1.0 if a.size == b.size == 0 else
+               np.intersect1d(a, b).size / max(a.size, b.size)
+               for a, b in zip(ids, h_ids)]
+    mean = float(np.mean(overlap))
+    log("live_host_vs_card", mean_overlap=mean,
+        exact_match_frac=float(np.mean([np.array_equal(a, b)
+                                        for a, b in zip(ids, h_ids)])),
+        host_s=time.time() - t)
+    check(mean >= 0.98,
+          f"post-churn card vs host id-set overlap {mean:.4f} < 0.98")
+    return launches
+
+
 def run(report_path: str | None) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -428,18 +717,27 @@ def run(report_path: str | None) -> int:
     with ThreadPoolExecutor(len(build.KERNELS)) as pool:
         list(pool.map(build.load, build.KERNELS))
     log("kernel_build", s=time.time() - t)
-    ds, index = build_corpus(log)
+    ds, index, held = build_corpus(log)
     batches = make_batches(ds)
     flush = torch.empty(64 << 20, dtype=torch.int8, device=dev)
     records = kernel_phases(ds, index, batches, dev, flush, log)
     del flush
     torch.cuda.empty_cache()
+    by_path = {"parity_gate": parity_path(log)}
     profile = {} if report_path else None
-    card_res, launches = main_path(ds, index, batches, dev, card, log,
-                                   profile)
-    for name, n in launches.items():
-        records[name]["launches"] = n
+    card_res, by_path["search"] = main_path(ds, index, batches, dev, card,
+                                            log, profile)
     host_comparison(index, ds, batches, card_res, log)
+    torch.cuda.empty_cache()
+    by_path["live_index"] = live_index(ds, index, held, batches, dev, card,
+                                       log)
+    # each kernel's launches come from the path it belongs to: K1-K3 from
+    # the search, K4 and K5 from the parity gate
+    for name, rec in records.items():
+        path = "parity_gate" if name in GATE_KERNELS else "search"
+        rec["launches"] = by_path[path].get(name, 0)
+        rec["launches_by_path"] = {p: n.get(name, 0)
+                                   for p, n in by_path.items()}
     if report_path:
         report["profile"] = profile
         report["kernels"] = list(records.values())

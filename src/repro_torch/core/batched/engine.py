@@ -8,8 +8,9 @@ CUDA kernel on the card, its plain version on the CPU), which applies the
 packed pass bitmap in the same pass.
 
 A filtered search batch (``search_batch``) runs predicate evaluation
-(``filter_eval_batch``), then the restart rounds (``atlas_round``: batched
-anchor selection from the ``DeviceAtlas`` + the lockstep walk). The two
+(``filter_eval_batch``, ANDed with the live-row bitmap on a capacity
+slab), then the restart rounds (``atlas_round``: batched anchor selection
+from the ``DeviceAtlas`` + the lockstep walk). The two
 ``lax.while_loop``s of the reference become Python loops whose exit
 conditions are read on the host: once per round, and once every
 ``HOP_CHECK_EVERY`` walk hops. A hop run after every lane has finished
@@ -31,12 +32,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.batched.bitmap import (n_words, popcount, set_bits,
-                                             test_bits, unpack_bits)
-from repro_torch.core.config import WalkConfig, coerce_config
-from repro_torch.core.device_atlas import (DeviceAtlas, pack_dnf,
-                                           pack_predicates, resolve_device,
-                                           table_n_disj, words_to_torch)
+from repro_torch import faults
+from repro_torch.core.batched.bitmap import (n_words, pack_bits, popcount,
+                                             set_bits, test_bits, unpack_bits)
+from repro_torch.core.config import (FnsConfig, WalkConfig,
+                                     check_state_config, coerce_config)
+from repro_torch.core.device_atlas import (DeviceAtlas, auto_v_cap,
+                                           pack_dnf, pack_predicates,
+                                           resolve_device, table_n_disj,
+                                           words_to_torch)
 from repro_torch.core.predicate import DNF, as_dnf, disjunct_selectivity
 from repro_torch.core.search import FiberIndex
 from repro_torch.core.types import FilterPredicate, Query
@@ -275,15 +279,23 @@ def atlas_round(datlas: DeviceAtlas, vectors, adjacency, pass_bm, passes,
 
 def search_batch(datlas: DeviceAtlas, vectors, adjacency, metadata, q_vecs,
                  fields, allowed, p: BatchedParams, seed_backend: str,
-                 bounds=None):
+                 valid_bm=None, bounds=None):
     """A whole filtered search batch: predicate evaluation, then up to
     ``jump_budget + 1`` restart rounds (each round = ``atlas_round``). A
     round where nobody seeded is discarded wholesale (it cannot change
     results) and ends the loop, as does a round after which no query is
-    short of k; both are read on the host in one sync per round."""
+    short of k; both are read on the host in one sync per round.
+
+    ``valid_bm`` (optional, (ceil(n/32),) int32) marks live rows: rows
+    with a 0 bit fail every predicate. A capacity slab uses it to keep its
+    unwritten tail and its tombstones out of every pass set — including
+    the unconstrained predicate, which an empty clause table would
+    otherwise let through."""
     Q = q_vecs.shape[0]
     dev = q_vecs.device
     pass_bm = _eval_passes(metadata, fields, allowed, bounds)
+    if valid_bm is not None:
+        pass_bm = pass_bm & valid_bm[None, :]
     # the dense unpack feeds only selection math and is round-invariant
     passes = unpack_bits(pass_bm, vectors.shape[0])
     processed = torch.zeros((Q, datlas.n_clusters), dtype=torch.bool,
@@ -397,36 +409,117 @@ def pack_query_batch(queries: list[Query], *, v_cap: int,
     return q_vecs, t(f_np), words_to_torch(a_np, device), bounds
 
 
+def _fence_pack(eng, queries: list[Query]):
+    """Publish-generation fence (DESIGN.md §13).
+
+    Pack the batch, then check the engine's ``publish_generation`` — the
+    counter every device publish (ingest refresh, tombstone, maintenance
+    swap) bumps. If a publish landed between the pack and here, the packed
+    tables may bake stale vocab domains and the tensors the caller is
+    about to bind may be mid-swap: re-pack against the new state and try
+    again. ``faults.fire("serve.pre-dispatch")`` sits in the window so
+    tests can script the interleaving. Returns ``(packed, generation)``
+    with ``generation == eng.publish_generation`` at return time."""
+    while True:
+        gen = eng.publish_generation
+        packed = eng._pack_queries(queries)
+        faults.fire("serve.pre-dispatch")
+        if eng.publish_generation == gen:
+            return packed, gen
+        eng.fence_retries += 1
+
+
+def _to_gids(ids: list[np.ndarray], gids) -> list[np.ndarray]:
+    """Map slab row indices to global ids (``gids`` None: a fixed-size
+    engine, rows are ids). Identity until the first compaction moves rows
+    (build + append assign gid == row)."""
+    return ids if gids is None else [gids[i] for i in ids]
+
+
+def _place(x: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """A host array as a tensor on ``device`` that shares no memory with
+    it, even on the CPU (a slab's arrays keep changing under later
+    inserts, and the search must see them only once they are published)."""
+    return torch.from_numpy(np.ascontiguousarray(x)).to(
+        device=device, dtype=dtype, copy=True)
+
+
 class BatchedEngine:
     """Batched filtered search over an index resident on one device.
 
     ``device`` None means CUDA, and constructing the engine raises where
     there is no CUDA device; ``device="cpu"`` runs the plain PyTorch
     versions of the kernels on the host. Every knob arrives through one
-    ``FnsConfig`` (``config=``, stored as ``self.cfg``). This engine is
-    the fixed-size (build-once) form: ``serve.capacity`` must be None.
+    ``FnsConfig`` (``config=``, stored as ``self.cfg``); a bare
+    ``WalkConfig`` or None takes this entry point's historical append-path
+    default ``graph.graph_k=16``, as the reference does.
+
+    ``serve.capacity`` (DESIGN.md §9) turns the device index into an
+    append-able capacity slab: tensors are sized to ``capacity`` rows, a
+    row-validity bitmap masks the unwritten tail and the tombstones out of
+    every pass set, and ``insert_batch`` / ``delete_batch`` change the
+    corpus in place (graph repair + incremental atlas update on a host
+    mirror, ``core/batched/insert.py``, then a same-shape refresh of the
+    device tensors; ``self.index`` keeps the build-time snapshot).
+    ``graph.graph_k``/``graph.alpha`` are the append path's forward-edge
+    count and α-RNG slack. ``serve/maintenance.py`` drains deferred work
+    through ``refresh_device``.
     """
 
     def __init__(self, index: FiberIndex, config=None, device=None,
                  vocab_sizes=None):
+        from repro_torch.core.batched.insert import (InsertState,
+                                                     make_shard_state)
+
         self.device = resolve_device(device)
-        cfg = coerce_config(config, {}, where="BatchedEngine")
-        if cfg.serve.capacity is not None:
-            raise NotImplementedError(
-                "the capacity-slab (insert/delete) engine is not ported; "
-                "build with serve.capacity=None")
+        # this entry point's historical append-path default (graph_k=16)
+        # predates the config tree's 32; applied unless a full FnsConfig
+        # states otherwise
+        cfg = coerce_config(config, {}, where="BatchedEngine",
+                            defaults={"graph.graph_k": 16})
         self.cfg = cfg
         self.index = index
         self.p = cfg.walk
+        self.publish_generation = 0
+        self.fence_retries = 0
+        v_cap = cfg.atlas.v_cap
+        capacity = cfg.serve.capacity
+        n = index.vectors.shape[0]
         dev = self.device
-        self.datlas = DeviceAtlas.from_atlas(index.atlas, v_cap=cfg.atlas.v_cap,
-                                             device=dev)
-        self.vectors = torch.from_numpy(
-            np.ascontiguousarray(index.vectors, np.float32)).to(dev)
-        self.adjacency = torch.from_numpy(
-            np.ascontiguousarray(index.graph.neighbors, np.int32)).to(dev)
-        self.metadata = torch.from_numpy(
-            np.ascontiguousarray(index.metadata, np.int32)).to(dev)
+        if capacity is None:
+            self.datlas = DeviceAtlas.from_atlas(index.atlas, v_cap=v_cap,
+                                                 device=dev)
+            self.vectors = _place(index.vectors, dev, torch.float32)
+            self.adjacency = _place(index.graph.neighbors, dev, torch.int32)
+            self.metadata = _place(index.metadata, dev, torch.int32)
+            self._state = None
+            self._valid_bm = None
+        else:
+            if capacity < n:
+                raise ValueError(f"capacity {capacity} < corpus size {n}")
+            # widen the row width for the append path's 1.5x graph_k
+            # forward edges
+            graph_k = cfg.graph.graph_k
+            adj = np.asarray(index.graph.neighbors, np.int32)
+            w = max(adj.shape[1], graph_k + graph_k // 2)
+            if w > adj.shape[1]:
+                adj = np.concatenate(
+                    [adj, np.full((n, w - adj.shape[1]), -1, np.int32)],
+                    axis=1)
+            slab = make_shard_state(
+                np.asarray(index.vectors, np.float32),
+                np.asarray(index.metadata, np.int32),
+                np.arange(n, dtype=np.int32), adj,
+                index.atlas, cap=capacity)
+            if v_cap is None:
+                # same auto-sizing rule as DeviceAtlas.from_atlas
+                vmax = int(index.metadata.max()) if index.metadata.size \
+                    else -1
+                v_cap = auto_v_cap(vmax)
+            self._state = InsertState(shards=[slab], v_cap=v_cap,
+                                      graph_k=graph_k, alpha=cfg.graph.alpha,
+                                      seed=0, next_gid=n)
+            self._refresh_from_slab(v_cap)
         # per-field domains for Not/Range lowering in FilterExpr queries;
         # derived from observed codes when the dataset's declaration isn't
         # handed in (identical masks for any domain covering the corpus)
@@ -434,25 +527,194 @@ class BatchedEngine:
                             if vocab_sizes is not None
                             else index.vocab_sizes())
 
+    @classmethod
+    def from_state(cls, state, config=None, device=None,
+                   vocab_sizes=None) -> "BatchedEngine":
+        """Reconstruct a live capacity-slab engine from an ``InsertState``
+        (DESIGN.md §10) with no graph/atlas rebuild: the slab already
+        carries the patched adjacency and the incremental atlas, so
+        everything derived (device atlas CSR, validity bitmap, the
+        ``FiberIndex`` view) is re-*emitted* onto ``device`` (None means
+        CUDA), never re-built. Further ``insert_batch`` calls continue
+        seamlessly; the engine mutates ``state`` in place.
+
+        An explicit full ``FnsConfig`` is validated against the state's
+        shape-baked knobs (``ConfigMismatch`` on disagreement)."""
+        from repro_torch.core.batched.insert import (emit_anchor_atlas,
+                                                     emit_graph)
+
+        if len(state.shards) != 1:
+            raise ValueError(
+                f"BatchedEngine.from_state needs a 1-shard state, got "
+                f"{len(state.shards)} shards")
+        cfg = coerce_config(config, {}, where="BatchedEngine.from_state")
+        if isinstance(config, FnsConfig):
+            check_state_config(
+                cfg, graph_k=state.graph_k, v_cap=state.v_cap,
+                n_clusters=state.shards[0].atlas.n_clusters,
+                capacity=sum(sh.cap for sh in state.shards),
+                where="BatchedEngine.from_state")
+        else:
+            # fold the state's baked values so self.cfg reports the truth
+            cfg = cfg.with_knobs({"graph.graph_k": state.graph_k,
+                                  "graph.alpha": state.alpha,
+                                  "atlas.v_cap": state.v_cap})
+        slab = state.shards[0]
+        eng = cls.__new__(cls)
+        eng.device = resolve_device(device)
+        eng.cfg = cfg
+        eng.index = FiberIndex(
+            slab.vectors[: slab.n_valid].copy(),
+            slab.metadata[: slab.n_valid].copy(),
+            emit_graph(slab), emit_anchor_atlas(slab))
+        eng.p = cfg.walk
+        eng.publish_generation = 0
+        eng.fence_retries = 0
+        eng._state = state
+        eng._refresh_from_slab(state.v_cap)
+        eng.vocab_sizes = (tuple(int(v) for v in vocab_sizes)
+                           if vocab_sizes is not None
+                           else eng.index.vocab_sizes())
+        eng.index.extend_vocab(eng.vocab_sizes)
+        return eng
+
+    def _refresh_from_slab(self, v_cap: int) -> None:
+        """(Re)place the device tensors from the host slab mirror at fixed
+        shapes — shared by construction, ingest, maintenance and
+        ``from_state``. Copies the whole slab (cap x d vectors included)."""
+        from repro_torch.core.batched.insert import emit_device_atlas
+
+        slab = self._state.shards[0]
+        dev = self.device
+        self.datlas = emit_device_atlas(slab, v_cap, dev)
+        self.vectors = _place(slab.vectors, dev)
+        self.adjacency = _place(slab.adjacency, dev)
+        self.metadata = _place(slab.metadata, dev)
+        self._valid_bm = pack_bits(_place(slab.valid, dev))
+        self.publish_generation += 1
+
+    def insert_batch(self, vectors, metadata, *,
+                     gids: np.ndarray | None = None) -> np.ndarray:
+        """Append (vector, metadata) rows to the live index: slab writes +
+        validity-bit flips, reverse-edge graph repair, and the incremental
+        atlas update run on the host mirror, then the device tensors are
+        refreshed (shapes change only when the slab outgrew its capacity,
+        in which case ``ensure_capacity`` compacts/grows first). With
+        ``maintenance.defer_repair`` the repair half is queued for the
+        maintenance loop instead. ``gids`` re-introduces deleted documents
+        under their old ids (still-live ids are rejected). Returns the new
+        rows' ids."""
+        from repro_torch.core.batched.insert import insert_rows
+        from repro_torch.core.batched.lifecycle import ensure_capacity
+
+        if self._state is None:
+            raise ValueError(
+                "engine was built without spare capacity; construct it "
+                "with serve.capacity set to enable insert_batch")
+        mcfg = self.cfg.maintenance
+        room = ensure_capacity(self._state, np.asarray(vectors).shape[0],
+                               mcfg)
+        if room["grown"]:
+            # keep the shape-baked knob truthful
+            self.cfg = self.cfg.with_knobs(
+                {"serve.capacity": room["new_cap"]})
+        gids, _ = insert_rows(self._state, vectors, metadata, gids=gids,
+                              defer_repair=mcfg.defer_repair)
+        self._refresh_from_slab(self.datlas.v_cap)
+        self.vocab_sizes = self._state.expand_vocab(self.vocab_sizes)
+        # keep the index's memoized domains in sync: Not / open-ended
+        # Range lowering would otherwise miss codes this ingest introduced
+        self.index.extend_vocab(self.vocab_sizes)
+        return gids
+
+    def delete_batch(self, gids) -> int:
+        """Tombstone documents by global id (DESIGN.md §12): clear their
+        validity bits on the host mirror and re-place the packed bitmap —
+        the only liveness source the search reads — so the cost is one
+        bit-pack + transfer, with no graph or atlas work (the dead rows
+        keep routing walks until compaction recycles them). Returns the
+        number of rows tombstoned."""
+        from repro_torch.core.batched.lifecycle import delete_rows
+
+        if self._state is None:
+            raise ValueError(
+                "engine was built without spare capacity; deletes need a "
+                "capacity-slab engine (serve.capacity set)")
+        n, _ = delete_rows(self._state, gids)
+        self._valid_bm = pack_bits(_place(self._state.shards[0].valid,
+                                          self.device))
+        self.publish_generation += 1
+        return n
+
+    def refresh_device(self, touched=None) -> None:
+        """Re-place the device tensors from the host slab after host-side
+        maintenance (compaction, growth, deferred repair): the hook
+        ``MaintenanceLoop`` publishes through."""
+        del touched  # one shard: a refresh is always full
+        if self._state is not None:
+            self._refresh_from_slab(self.datlas.v_cap)
+
+    @property
+    def state(self):
+        """The host ``InsertState`` mirror (None on a fixed-size engine) —
+        what the lifecycle/maintenance subsystem mutates."""
+        return self._state
+
+    @property
+    def insert_stats(self) -> dict | None:
+        """Ingest/staleness accounting, or None on a fixed-size engine."""
+        return self._state.stats() if self._state is not None else None
+
     def _pack_queries(self, queries: list[Query]):
         return pack_query_batch(queries, v_cap=self.datlas.v_cap,
                                 vocab_sizes=self.vocab_sizes,
                                 device=self.device)
 
-    def search(self, queries: list[Query]):
-        """Filtered top-k for a batch. Returns (ids per query as numpy
-        arrays, stats) with per-query ``walks``/``hops`` and ``syncs``, the
-        host reads of loop conditions the batch took. The search is
-        deterministic (seeds are nearest matching members, never random
-        samples)."""
-        q_vecs, fields, allowed, bounds = self._pack_queries(queries)
+    def dispatch(self, queries: list[Query]) -> dict:
+        """Fenced pack + the search; returns a token for ``collect``. The
+        token carries the results as device tensors and snapshots the
+        global-id map and the publish generation, so a compaction that
+        remaps rows before ``collect`` cannot mistranslate the batch.
+
+        Not asynchronous yet: the search's loop exits are read on the host
+        (``stats["syncs"]``), so this returns only once the batch's rounds
+        are done; only the copy of the results waits for ``collect``."""
+        (q_vecs, fields, allowed, bounds), gen = _fence_pack(self, queries)
         out = search_batch(self.datlas, self.vectors, self.adjacency,
                            self.metadata, q_vecs, fields, allowed, self.p,
-                           self.cfg.serve.seed_backend, bounds=bounds)
-        res_v = out["res_v"].cpu().numpy()
-        res_i = out["res_i"].cpu().numpy()
-        ids = [res_i[i][res_v[i] < INF / 2] for i in range(len(queries))]
-        stats = {"walks": out["walks"].cpu().numpy().astype(np.int32),
-                 "hops": out["hops"].cpu().numpy().astype(np.int64),
-                 "syncs": out["syncs"] + 1}
+                           self.cfg.serve.seed_backend,
+                           valid_bm=self._valid_bm, bounds=bounds)
+        gids = (self._state.shards[0].global_ids.copy()
+                if self._state is not None else None)
+        return {"out": out, "q_n": len(queries), "generation": gen,
+                "gids": gids}
+
+    def collect(self, token: dict):
+        """Finish a ``dispatch`` token: the batch's one device-to-host copy
+        (results, walks and hops packed into one int32 tensor) and the
+        result/stat post-processing. Returns (ids per query as numpy
+        arrays, stats) with per-query ``walks``/``hops``, ``syncs`` (the
+        host reads the batch took, the final copy included) and
+        ``generation``, the publish generation it was dispatched against."""
+        out = token["out"]
+        k = out["res_v"].shape[1]
+        host = torch.cat([out["res_v"].view(torch.int32), out["res_i"],
+                          out["walks"].to(torch.int32)[:, None],
+                          out["hops"].to(torch.int32)[:, None]],
+                         dim=1).cpu().numpy()
+        q_n = token["q_n"]
+        res_v = np.ascontiguousarray(host[:, :k]).view(np.float32)
+        res_i = host[:, k:2 * k]
+        ids = _to_gids([res_i[i][res_v[i] < INF / 2] for i in range(q_n)],
+                       token["gids"])
+        stats = {"walks": host[:q_n, 2 * k].astype(np.int32),
+                 "hops": host[:q_n, 2 * k + 1].astype(np.int64),
+                 "syncs": out["syncs"] + 1,
+                 "generation": token["generation"]}
         return ids, stats
+
+    def search(self, queries: list[Query]):
+        """Filtered top-k for a batch: ``collect(dispatch(queries))``. The
+        search is deterministic (seeds are nearest matching members, never
+        random samples)."""
+        return self.collect(self.dispatch(queries))

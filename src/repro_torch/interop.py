@@ -12,6 +12,8 @@ import torch
 
 from repro_torch.core import predicate as P
 from repro_torch.core.atlas import AnchorAtlas
+from repro_torch.core.batched.insert import (HostAtlas, InsertParams,
+                                             InsertState, ShardState)
 from repro_torch.core.device_atlas import (DeviceAtlas, resolve_device,
                                            words_to_torch)
 from repro_torch.core.graph import Graph
@@ -100,3 +102,36 @@ def queries_from_reference(queries) -> list[Query]:
                   gt_ids=None if q.gt_ids is None else _np(q.gt_ids),
                   gt_sims=None if q.gt_sims is None else _np(q.gt_sims),
                   selectivity=q.selectivity) for q in queries]
+
+
+def insert_state_from_reference(ref_state) -> InsertState:
+    """The reference's live-index ``InsertState`` (its capacity slabs,
+    host atlases, backlog and counters, all numpy) as the port's, sharing
+    no memory with it — what ``BatchedEngine.from_state`` takes."""
+    def shard(sh):
+        a = sh.atlas
+        atlas = HostAtlas(_np(a.centroids, np.float32),
+                          _np(a.assign, np.int32),
+                          _np(a.base_counts, np.int64),
+                          _np(a.base_centroids, np.float32),
+                          reclusters=int(a.reclusters))
+        return ShardState(_np(sh.vectors, np.float32),
+                          _np(sh.adjacency, np.int32),
+                          _np(sh.metadata, np.int32),
+                          _np(sh.global_ids, np.int32), int(sh.n_valid),
+                          atlas, live=_np(sh.live, bool))
+
+    p = ref_state.params
+    return InsertState(
+        shards=[shard(sh) for sh in ref_state.shards],
+        v_cap=int(ref_state.v_cap), graph_k=int(ref_state.graph_k),
+        alpha=float(ref_state.alpha), seed=int(ref_state.seed),
+        next_gid=int(ref_state.next_gid),
+        params=InsertParams(float(p.recluster_occupancy),
+                            float(p.recluster_drift), int(p.kmeans_iters)),
+        inserted=int(ref_state.inserted), batches=int(ref_state.batches),
+        repairs=int(ref_state.repairs),
+        applied_seq=int(ref_state.applied_seq),
+        deleted=int(ref_state.deleted),
+        compactions=int(ref_state.compactions), grown=int(ref_state.grown),
+        pending=[tuple(int(x) for x in e) for e in ref_state.pending])

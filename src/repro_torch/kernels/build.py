@@ -11,9 +11,14 @@ processes run side by side).
 Libraries land in ``build/repro_torch/`` at the repository root (git
 ignores it), named by a hash of their source and flags, so an edited
 source is rebuilt and an unchanged one is reused.
+
+``LAUNCHES`` counts kernel launches by kernel name: each wrapper adds one
+where it launches its kernel and nowhere else, so a run that clears it
+first can show which kernels its path went through.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -31,6 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+
+LAUNCHES: collections.Counter = collections.Counter()
 
 
 def nvcc_path() -> str:

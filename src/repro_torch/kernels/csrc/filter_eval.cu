@@ -1,4 +1,5 @@
-// K1 filter_eval_batch: predicate clause tables -> packed pass bitmaps.
+// K1 filter_eval_batch: predicate clause tables -> packed pass bitmaps,
+// and K4 filter_eval, its single-query conjunctive form.
 //
 // Replaces the Pallas kernels behind src/repro/kernels/filter_eval.py
 // filter_eval_batch: _batch_kernel (conjunctive (Q, C) tables),
@@ -23,6 +24,16 @@
 // cross-thread packing. A row stops at its first passing disjunct and a
 // disjunct at its first failing clause (the union is order-independent).
 // Rows >= n never pass, so the tail word's pad bits are 0.
+//
+// K4 filter_eval replaces the Pallas kernel behind
+// src/repro/kernels/filter_eval.py filter_eval (_kernel): one query, a
+// conjunctive (C,) fields row (-1 inactive) and a dense (C, v_cap) uint8
+// allowed table, one 1 per allowed code. Same bound (bytes: the named
+// metadata columns in, ceil(n/32) words out) and the same design as K1: the
+// byte table sits in shared memory, a thread tests one row, and the warp
+// packs its 32 flags with __ballot_sync. Rows >= n never pass, so the pad
+// bits of the last word are 0 even when no clause is active (the Pallas
+// kernel leaves them set there; its jnp oracle clears them).
 #include <cuda_runtime.h>
 
 namespace {
@@ -86,6 +97,38 @@ __global__ void filter_eval_batch_kernel(
   }
 }
 
+__global__ void filter_eval_kernel(const int* __restrict__ meta, int n, int F,
+                                   const int* __restrict__ fields,
+                                   const unsigned char* __restrict__ allowed,
+                                   int C, int v_cap, int W,
+                                   unsigned int* __restrict__ out) {
+  extern __shared__ int smem[];
+  int* s_fields = smem;
+  unsigned char* s_allowed = reinterpret_cast<unsigned char*>(s_fields + C);
+  for (int i = threadIdx.x; i < C; i += blockDim.x) s_fields[i] = fields[i];
+  for (int i = threadIdx.x; i < C * v_cap; i += blockDim.x)
+    s_allowed[i] = allowed[i];
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int w = blockIdx.x * kWarps + warp; w < W; w += gridDim.x * kWarps) {
+    const int row = w * 32 + lane;
+    bool ok = row < n;
+    if (ok) {
+      const int* m = meta + (size_t)row * F;
+      for (int c = 0; c < C && ok; ++c) {
+        const int f = s_fields[c];
+        if (f < 0) continue;  // inactive clause
+        const int col = __ldg(m + f);
+        ok = col >= 0 && col < v_cap && s_allowed[c * v_cap + col] != 0;
+      }
+    }
+    const unsigned word = __ballot_sync(0xffffffffu, ok);
+    if (lane == 0) out[w] = word;
+  }
+}
+
 }  // namespace
 
 extern "C" const char* kernel_error_string(int code) {
@@ -117,6 +160,32 @@ extern "C" int filter_eval_batch_launch(const void* meta, int n, int F,
       static_cast<const int*>(meta), n, F, static_cast<const int*>(fields),
       static_cast<const int*>(allowed), static_cast<const int*>(bounds),
       static_cast<const int*>(n_disj), D, C, Wv, W,
+      static_cast<unsigned int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// metadata (n, F) i32; fields (C,) i32 (-1 inactive); allowed (C, v_cap)
+// uint8; out (W,) i32 with W = ceil(n/32). Launches on `stream`; returns
+// cudaGetLastError().
+extern "C" int filter_eval_launch(const void* meta, int n, int F,
+                                  const void* fields, const void* allowed,
+                                  int C, int v_cap, void* out, void* stream) {
+  const int W = (n + 31) / 32;
+  if (W == 0) return 0;
+  const size_t smem =
+      static_cast<size_t>(C) * sizeof(int) + static_cast<size_t>(C) * v_cap;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        filter_eval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  // one word per warp; enough blocks to cover every SM several times over
+  const int blocks = min((W + kWarps - 1) / kWarps, 132 * 8);
+  filter_eval_kernel<<<blocks, kWarps * 32, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(meta), n, F, static_cast<const int*>(fields),
+      static_cast<const unsigned char*>(allowed), C, v_cap, W,
       static_cast<unsigned int*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,11 @@
-"""K2: walk-hop neighbour gather + dot + pass-bit probe
+"""K2 and K5: neighbour gather + dot + pass-bit probe
 (``csrc/fiber_expand.cu``).
 
-``fiber_expand_walk`` launches the hand-written CUDA kernel on CUDA
-tensors; ``kernels.ref.fiber_expand_walk`` is the plain PyTorch version
-(the CPU path and the kernel's allclose target). The dispatcher in
-``kernels/ops.py`` picks between them by device.
+``fiber_expand_walk`` (K2, the walk hop's two outputs) and
+``fiber_expand`` (K5, the pass-masked output alone) launch the
+hand-written CUDA kernels on CUDA tensors; ``kernels.ref`` holds the plain
+PyTorch versions of both (the CPU path and the kernels' allclose targets).
+The dispatcher in ``kernels/ops.py`` picks between them by device.
 """
 from __future__ import annotations
 
@@ -14,21 +15,13 @@ import torch
 
 from repro_torch.kernels import build
 
-# kernel launches since the count was last set to 0 (read by the smoke
-# test to show the main path went through the kernel)
-launches = 0
-
-_C_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+# 4 input pointers, (Q, R, d, W, vec4), then the outputs and the stream
+_C_ARGS_WALK = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+_C_ARGS_ONE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
 
 
-def fiber_expand_walk(q_vecs: torch.Tensor, corpus: torch.Tensor,
-                      ids: torch.Tensor, bitmap: torch.Tensor):
-    """The CUDA kernel: q_vecs (Q, d) f32; corpus (n, d) f32; ids (Q, R)
-    i32 (-1 pad); bitmap (Q, ceil(n/32)) i32, all contiguous on one CUDA
-    device. Returns (sims, sims_pass), both (Q, R) f32 with -inf masking,
-    as ``ref.fiber_expand_walk``."""
-    global launches
-    what = "fiber_expand_walk"
+def _check(what: str, q_vecs, corpus, ids, bitmap) -> tuple:
+    """Validate the shared inputs of K2 and K5; returns (device, vec4)."""
     device = build.require_cuda(what, q_vecs=q_vecs, corpus=corpus, ids=ids,
                                 bitmap=bitmap)
     build.require_dtype(what, torch.float32, q_vecs=q_vecs, corpus=corpus)
@@ -43,15 +36,50 @@ def fiber_expand_walk(q_vecs: torch.Tensor, corpus: torch.Tensor,
                          f"{tuple(ids.shape)}, bitmap {tuple(bitmap.shape)}")
     vec4 = int(d % 4 == 0 and q_vecs.data_ptr() % 16 == 0
                and corpus.data_ptr() % 16 == 0)
+    return device, vec4
+
+
+def fiber_expand_walk(q_vecs: torch.Tensor, corpus: torch.Tensor,
+                      ids: torch.Tensor, bitmap: torch.Tensor):
+    """The K2 CUDA kernel: q_vecs (Q, d) f32; corpus (n, d) f32; ids
+    (Q, R) i32 (-1 pad); bitmap (Q, ceil(n/32)) i32, all contiguous on one
+    CUDA device. Returns (sims, sims_pass), both (Q, R) f32 with -inf
+    masking, as ``ref.fiber_expand_walk``."""
+    what = "fiber_expand_walk"
+    device, vec4 = _check(what, q_vecs, corpus, ids, bitmap)
+    q_n, d = q_vecs.shape
+    R = ids.shape[1]
     sims = torch.empty((q_n, R), dtype=torch.float32, device=device)
     sims_pass = torch.empty_like(sims)
     lib = build.load("fiber_expand")
     fn = lib.fiber_expand_walk_launch
-    fn.argtypes = _C_ARGS
+    fn.argtypes = _C_ARGS_WALK
     fn.restype = ctypes.c_int
     rc = fn(build.ptr(q_vecs), build.ptr(corpus), build.ptr(ids),
             build.ptr(bitmap), q_n, R, d, bitmap.shape[1], vec4,
             build.ptr(sims), build.ptr(sims_pass), build.stream(device))
     build.check(lib, rc, what)
-    launches += 1
+    build.LAUNCHES[what] += 1
     return sims, sims_pass
+
+
+def fiber_expand(q_vecs: torch.Tensor, corpus: torch.Tensor,
+                 ids: torch.Tensor, bitmap: torch.Tensor) -> torch.Tensor:
+    """The K5 CUDA kernel: the inputs of ``fiber_expand_walk``; returns
+    sims (Q, R) f32, -inf unless the id is >= 0 and its pass bit is set,
+    as ``ref.fiber_expand``. Rows whose bit is 0 are never read."""
+    what = "fiber_expand"
+    device, vec4 = _check(what, q_vecs, corpus, ids, bitmap)
+    q_n, d = q_vecs.shape
+    R = ids.shape[1]
+    sims = torch.empty((q_n, R), dtype=torch.float32, device=device)
+    lib = build.load("fiber_expand")
+    fn = lib.fiber_expand_launch
+    fn.argtypes = _C_ARGS_ONE
+    fn.restype = ctypes.c_int
+    rc = fn(build.ptr(q_vecs), build.ptr(corpus), build.ptr(ids),
+            build.ptr(bitmap), q_n, R, d, bitmap.shape[1], vec4,
+            build.ptr(sims), build.stream(device))
+    build.check(lib, rc, what)
+    build.LAUNCHES[what] += 1
+    return sims

@@ -1,9 +1,12 @@
-"""K1: predicate evaluation -> packed pass bitmaps (``csrc/filter_eval.cu``).
+"""K1 and K4: predicate evaluation -> packed pass bitmaps
+(``csrc/filter_eval.cu``).
 
-``filter_eval_batch`` launches the hand-written CUDA kernel on CUDA
-tensors; ``kernels.ref.filter_eval_batch`` is the plain PyTorch version
-of the same function (the CPU path and the kernel's bit-exact target). The
-dispatcher in ``kernels/ops.py`` picks between them by device.
+``filter_eval_batch`` (K1, a batch of clause tables) and ``filter_eval``
+(K4, one conjunctive query over a dense uint8 allowed table) launch the
+hand-written CUDA kernels on CUDA tensors; ``kernels.ref`` holds the plain
+PyTorch versions of both (the CPU path and the kernels' bit-exact
+targets). The dispatcher in ``kernels/ops.py`` picks between them by
+device.
 
 Clause tables are the packers' (``core/device_atlas.py``): conjunctive
 fields (Q, C) i32 with -1 = inactive clause, or disjunctive (Q, D, C) with
@@ -26,15 +29,15 @@ from repro_torch.kernels import build
 # densely from 0, so the per-query count is recoverable from the table.
 DEAD_DISJUNCT = -2
 
-# kernel launches since the count was last set to 0 (read by the smoke
-# test to show the main path went through the kernel)
-launches = 0
-
 _C_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,       # meta, n, F
            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # tables
            ctypes.c_void_p,                                    # n_disj
            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
            ctypes.c_void_p, ctypes.c_void_p]                   # out, stream
+_C_ARGS_SINGLE = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # meta, n, F
+                  ctypes.c_void_p, ctypes.c_void_p,  # fields, allowed
+                  ctypes.c_int, ctypes.c_int,        # C, v_cap
+                  ctypes.c_void_p, ctypes.c_void_p]  # out, stream
 
 
 def table_n_disj(fields: torch.Tensor) -> torch.Tensor:
@@ -49,7 +52,6 @@ def filter_eval_batch(metadata: torch.Tensor, fields: torch.Tensor,
     """The CUDA kernel: same contract as ``ref.filter_eval_batch``;
     every tensor must be a contiguous int32 tensor on one CUDA device.
     Returns (Q, ceil(n/32)) int32 pass bitmaps, pad bits 0."""
-    global launches
     what = "filter_eval_batch"
     if fields.ndim == 2:  # conjunctive form = one live disjunct
         q_n, C = fields.shape
@@ -88,6 +90,35 @@ def filter_eval_batch(metadata: torch.Tensor, fields: torch.Tensor,
             build.ptr(bounds), build.ptr(n_disj), q_n, D, C, Wv,
             build.ptr(out), build.stream(device))
     build.check(lib, rc, what)
-    launches += 1
+    build.LAUNCHES[what] += 1
+    return out
+
+
+def filter_eval(metadata: torch.Tensor, fields: torch.Tensor,
+                allowed: torch.Tensor) -> torch.Tensor:
+    """The K4 CUDA kernel: metadata (n, F) i32; fields (C,) i32 (-1 =
+    inactive clause); allowed (C, v_cap) uint8 (nonzero = code allowed),
+    all contiguous on one CUDA device. Returns the (ceil(n/32),) int32
+    pass bitmap with pad bits 0, as ``ref.filter_eval``."""
+    what = "filter_eval"
+    device = build.require_cuda(what, metadata=metadata, fields=fields,
+                                allowed=allowed)
+    build.require_dtype(what, torch.int32, metadata=metadata, fields=fields)
+    build.require_dtype(what, torch.uint8, allowed=allowed)
+    n, F = metadata.shape
+    if fields.ndim != 1 or allowed.ndim != 2 \
+            or allowed.shape[0] != fields.shape[0]:
+        raise ValueError(f"{what}: fields {tuple(fields.shape)} and allowed "
+                         f"{tuple(allowed.shape)} must be (C,) and (C, v_cap)")
+    C, v_cap = allowed.shape
+    out = torch.empty(n_words(n), dtype=torch.int32, device=device)
+    lib = build.load("filter_eval")
+    fn = lib.filter_eval_launch
+    fn.argtypes = _C_ARGS_SINGLE
+    fn.restype = ctypes.c_int
+    rc = fn(build.ptr(metadata), n, F, build.ptr(fields), build.ptr(allowed),
+            C, v_cap, build.ptr(out), build.stream(device))
+    build.check(lib, rc, what)
+    build.LAUNCHES[what] += 1
     return out
 

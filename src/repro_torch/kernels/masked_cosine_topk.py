@@ -17,10 +17,6 @@ from repro_torch.kernels import build
 # the kernel keeps each query's list in one warp's registers
 MAX_K = 32
 
-# kernel launches since the count was last set to 0 (read by the smoke
-# test to show the main path went through the kernel)
-launches = 0
-
 _C_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
            + [ctypes.c_void_p] * 5)
 
@@ -31,7 +27,6 @@ def masked_cosine_topk(queries: torch.Tensor, corpus: torch.Tensor,
     (Q, ceil(n/32)) i32, all contiguous on one CUDA device; 1 <= k <= 32.
     Returns (sims (Q, k) f32 desc, ids (Q, k) i32; -inf/-1 where fewer than
     k rows pass; ties go to the lower id), as ``ref.masked_cosine_topk``."""
-    global launches
     what = "masked_cosine_topk"
     device = build.require_cuda(what, queries=queries, corpus=corpus,
                                 bitmap=bitmap)
@@ -67,5 +62,5 @@ def masked_cosine_topk(queries: torch.Tensor, corpus: torch.Tensor,
             build.ptr(part_i), build.ptr(sims), build.ptr(ids),
             build.stream(device))
     build.check(lib, rc, what)
-    launches += 1
+    build.LAUNCHES[what] += 1
     return sims, ids

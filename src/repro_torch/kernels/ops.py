@@ -1,12 +1,14 @@
-"""Device dispatch for the main-path kernels.
+"""Device dispatch for the kernels.
 
 A CPU tensor goes to the plain PyTorch version (``kernels/ref.py``); a
 CUDA tensor launches the hand-written kernel, which either runs or
 raises: there is no fallback from a CUDA tensor to the plain version.
-Any other device raises.
+Any other device raises. ``predicate_tables`` converts a conjunctive
+``FilterPredicate`` into the dense clause tables ``filter_eval`` takes.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.config import AtlasConfig, KernelConfig
@@ -46,3 +48,29 @@ def filter_eval_batch(metadata, fields, allowed, n_disj=None, bounds=None):
         return _fv.filter_eval_batch(metadata, fields, allowed, n_disj,
                                      bounds)
     return ref.filter_eval_batch(metadata, fields, allowed, n_disj, bounds)
+
+
+def fiber_expand(q_vecs, corpus, ids, bitmap):
+    if _on_cuda(corpus, "fiber_expand"):
+        return _fe.fiber_expand(q_vecs, corpus, ids, bitmap)
+    return ref.fiber_expand(q_vecs, corpus, ids, bitmap)
+
+
+def filter_eval(metadata, fields, allowed):
+    if _on_cuda(metadata, "filter_eval"):
+        return _fv.filter_eval(metadata, fields, allowed)
+    return ref.filter_eval(metadata, fields, allowed)
+
+
+def predicate_tables(pred, n_fields: int,
+                     max_clauses: int = MAX_CLAUSES,
+                     v_cap: int = V_CAP) -> tuple[np.ndarray, np.ndarray]:
+    """FilterPredicate -> (fields (C,) i32, allowed (C, v_cap) u8)."""
+    fields = np.full(max_clauses, -1, np.int32)
+    allowed = np.zeros((max_clauses, v_cap), np.uint8)
+    for i, (f, vals) in enumerate(pred.clauses[:max_clauses]):
+        fields[i] = f
+        for v in vals:
+            if 0 <= v < v_cap:
+                allowed[i, v] = 1
+    return fields, allowed

@@ -16,6 +16,12 @@ reference's bit layout, see ``core/batched/bitmap.py``):
   value-bitmap words); disjunctive (Q, D, C) ``pack_dnf`` tables OR the
   per-disjunct conjunctive bitmaps (dead-disjunct padding, marked with
   field sentinel -2, contributes nothing); code -1 fails every clause.
+* filter_eval: the single-query conjunctive form over a dense (C, v_cap)
+  uint8 allowed table (``ops.predicate_tables``) -> (ceil(n/32),) words.
+* fiber_expand: the one-output form of fiber_expand_walk — sims are -inf
+  unless the id is >= 0 AND its filter bit is set.
+
+Every packed bitmap here has its pad bits (beyond n) at 0.
 """
 from __future__ import annotations
 
@@ -69,6 +75,32 @@ def fiber_expand_walk(q_vecs: torch.Tensor, corpus: torch.Tensor,
     valid = ids >= 0
     return (torch.where(valid, sims, NEG),
             torch.where(valid & bits, sims, NEG))
+
+
+def fiber_expand(q_vecs: torch.Tensor, corpus: torch.Tensor,
+                 ids: torch.Tensor, bitmap: torch.Tensor) -> torch.Tensor:
+    """q_vecs (Q, d); corpus (n, d); ids (Q, R) i32 (-1 pad);
+    bitmap (Q, n_words) int32. Returns sims (Q, R) f32, -inf where the id
+    is padded or its filter bit is 0."""
+    return fiber_expand_walk(q_vecs, corpus, ids, bitmap)[1]
+
+
+def filter_eval(metadata: torch.Tensor, fields: torch.Tensor,
+                allowed: torch.Tensor) -> torch.Tensor:
+    """metadata (n, F) i32; fields (C,) i32 (-1 = inactive clause);
+    allowed (C, v_cap) uint8 (nonzero = value allowed). Returns the
+    (ceil(n/32),) int32 packed bitmap (bit i of word w -> row 32*w + i),
+    pad bits 0."""
+    n = metadata.shape[0]
+    v_cap = allowed.shape[1]
+    ok = torch.ones(n, dtype=torch.bool, device=metadata.device)
+    for c in range(fields.shape[0]):
+        f = fields[c]
+        vals = metadata.index_select(1, f.clamp(min=0).long().view(1))[:, 0]
+        hit = allowed[c].index_select(0, vals.clamp(0, v_cap - 1).long()) > 0
+        clause_ok = (vals >= 0) & (vals < v_cap) & hit
+        ok = torch.where(f >= 0, ok & clause_ok, ok)
+    return pack_bits(ok)
 
 
 def _conj_ok(metadata: torch.Tensor, fields: torch.Tensor,

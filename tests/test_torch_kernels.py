@@ -1,13 +1,19 @@
 """The port's plain kernel versions (``repro_torch.kernels.ref``) vs the
 reference's jnp oracles AND its Pallas kernels in interpret mode, on the
-shape sweeps of ``tests/test_kernels.py``; plus the dispatcher's CPU route.
+shape sweeps of ``tests/test_kernels.py``; plus the dispatcher's CPU route
+and the port's parity gate on the CPU.
 
-Tolerances: K1 (filter_eval_batch) is integer work and must be bit-exact.
-K2 (fiber_expand_walk) sims are fp32 dot products summed in a different
-order by each framework: allclose at rtol=atol=1e-5, with the -inf
-positions identical. K3 (masked_cosine_topk) sims at rtol=atol=1e-4 (the
-reference's own kernel-vs-oracle bar), ids equal on tie-free random data,
-and a tie-heavy row must give the lowest ids first.
+Tolerances: K1 (filter_eval_batch) and K4 (filter_eval) are integer work
+and must be bit-exact. K2 (fiber_expand_walk) sims are fp32 dot products
+summed in a different order by each framework: allclose at
+rtol=atol=1e-5, with the -inf positions identical; K5 (fiber_expand) at
+rtol=atol=1e-4, the reference's own kernel-vs-oracle bar. K3
+(masked_cosine_topk) sims at rtol=atol=1e-4 (the same bar), ids equal on
+tie-free random data, and a tie-heavy row must give the lowest ids first.
+
+``repro.core`` is imported before ``repro.kernels``: the reference's
+``kernels/ops.py`` imports ``repro.core``, whose ``device_atlas`` imports
+``repro.kernels`` back.
 """
 import numpy as np
 import jax
@@ -18,16 +24,22 @@ import torch
 from repro.core.device_atlas import pack_dnf, pack_predicates
 from repro.core.predicate import And, In, Not, Or, Range, as_dnf
 from repro.core.types import FilterPredicate
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.fiber_expand import fiber_expand as pallas_expand
 from repro.kernels.fiber_expand import fiber_expand_walk as pallas_walk
+from repro.kernels.filter_eval import filter_eval as pallas_filter_one
 from repro.kernels.filter_eval import filter_eval_batch as pallas_filter
 from repro.kernels.masked_cosine_topk import masked_cosine_topk as pallas_topk
-from repro_torch.kernels import fiber_expand, filter_eval, masked_cosine_topk
-from repro_torch.kernels import ops
+from repro_torch.kernels import (build, fiber_expand, filter_eval,
+                                 masked_cosine_topk, ops)
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.parity import kernel_oracle_parity
 
 _jref_filter = jax.jit(jref.filter_eval_batch)
+_jref_filter_one = jax.jit(jref.filter_eval)
 _jref_walk = jax.jit(jref.fiber_expand_walk)
+_jref_expand = jax.jit(jref.fiber_expand)
 _jref_topk = jax.jit(jref.masked_cosine_topk, static_argnums=3)
 
 
@@ -114,6 +126,93 @@ def test_filter_eval_dnf_bit_exact(n, with_bounds):
         bits = np.unpackbits(got.numpy().view(np.uint8), axis=1,
                              bitorder="little")[:, :n].astype(bool)
         np.testing.assert_array_equal(bits, want)
+
+
+def _single_tables(case, seed):
+    """K4 tables: (C,) fields and a dense (C, 256) uint8 allowed table —
+    three active clauses, or none at all (every row passes)."""
+    rng = np.random.default_rng(seed)
+    if case == "inactive":
+        fields = np.full(4, -1, np.int32)
+    else:
+        fields = np.asarray([0, 5, -1, 2], np.int32)
+    allowed = rng.integers(0, 2, (4, 256)).astype(np.uint8)
+    return fields, allowed
+
+
+def _k4_numpy(meta, fields, allowed):
+    """The K4 semantics in numpy: (n,) bool pass mask."""
+    ok = np.ones(meta.shape[0], bool)
+    for f, row in zip(fields, allowed):
+        if f >= 0:
+            v = meta[:, f]
+            ok &= (v >= 0) & (v < row.size) & (row[np.clip(v, 0,
+                                                           row.size - 1)] > 0)
+    return ok
+
+
+@pytest.mark.parametrize("n", [10, 40, 300, 1000])
+@pytest.mark.parametrize("case", ["active", "inactive"])
+def test_filter_eval_single_bit_exact(n, case):
+    """K4's plain version equals the jnp oracle bit for bit, pad bits
+    included (they are 0), and the Pallas kernel on the first n bits."""
+    meta = _meta(n, 6, n + 3)
+    fields, allowed = _single_tables(case, n)
+    got = tref.filter_eval(_t(meta), _t(fields), _t(allowed))
+    assert got.shape == ((n + 31) // 32,) and got.dtype == torch.int32
+    jargs = (jnp.asarray(meta), jnp.asarray(fields), jnp.asarray(allowed))
+    _assert_bits_equal(got, _jref_filter_one(*jargs))
+    bits = np.unpackbits(got.numpy().view(np.uint8), bitorder="little")
+    np.testing.assert_array_equal(bits[:n].astype(bool),
+                                  _k4_numpy(meta, fields, allowed))
+    assert not bits[n:].any(), "pad bits must be 0"
+    # The Pallas kernel leaves the pad bits of the last word set when no
+    # clause is active and n % 32 != 0 (its padded rows carry code -1 and
+    # nothing tests them); its oracle, K1 and the port clear them. So only
+    # the first n bits are held to it.
+    pallas = np.asarray(pallas_filter_one(*jargs, tn=64, interpret=True))
+    p_bits = np.unpackbits(pallas.view(np.uint8), bitorder="little")
+    np.testing.assert_array_equal(bits[:n], p_bits[:n])
+
+
+@pytest.mark.parametrize("n,d,Q,R", [(64, 16, 2, 5), (500, 64, 7, 24),
+                                     (1000, 128, 3, 48)])
+def test_fiber_expand_matches(n, d, Q, R):
+    """K5's plain version against the jnp oracle and the interpret-mode
+    Pallas kernel: -inf exactly where the id is -1 or its bit is 0."""
+    corpus, queries, bitmap = _mk(n, d, Q, seed=R + 2)
+    ids = np.random.default_rng(R + 2).integers(-1, n, (Q, R)).astype(
+        np.int32)
+    got = tref.fiber_expand(_t(queries), _t(corpus), _t(ids), _t(bitmap))
+    jargs = (jnp.asarray(queries), jnp.asarray(corpus), jnp.asarray(ids),
+             jnp.asarray(bitmap))
+    for want in (_jref_expand(*jargs), pallas_expand(*jargs, interpret=True)):
+        want = np.asarray(want)
+        want = np.where(want <= -3.4e38 / 2, -np.inf, want)
+        np.testing.assert_array_equal(np.isneginf(got.numpy()),
+                                      np.isneginf(want))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_predicate_tables_identical():
+    """``ops.predicate_tables`` gives the reference's dense K4 tables,
+    clauses past max_clauses and values past v_cap dropped alike."""
+    from repro_torch.core.types import FilterPredicate as TPred
+    specs = [{0: [3, 4], 2: [1]}, {1: list(range(10))}, {},
+             {0: [1], 1: [2], 2: [3], 3: [4], 4: [300, 5]}]
+    for spec in specs:
+        for kw in ({}, {"max_clauses": 2, "v_cap": 64}):
+            want = jops.predicate_tables(FilterPredicate.make(spec), 6, **kw)
+            got = ops.predicate_tables(TPred.make(spec), 6, **kw)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype
+                np.testing.assert_array_equal(g, w)
+
+
+def test_parity_gate_on_cpu():
+    """The port's parity gate, run through the CPU route: every probe,
+    the expression-tree checks included, comes back clean."""
+    assert kernel_oracle_parity("cpu") == []
 
 
 @pytest.mark.parametrize("n,d,Q,R", [(64, 16, 2, 5), (500, 64, 7, 24),
@@ -211,11 +310,12 @@ def test_ops_sends_cpu_tensors_to_plain_versions(monkeypatch):
         raise AssertionError("kernel wrapper called for a CPU tensor")
 
     for mod, name in ((filter_eval, "filter_eval_batch"),
+                      (filter_eval, "filter_eval"),
                       (fiber_expand, "fiber_expand_walk"),
+                      (fiber_expand, "fiber_expand"),
                       (masked_cosine_topk, "masked_cosine_topk")):
         monkeypatch.setattr(mod, name, boom)
-    before = (filter_eval.launches, fiber_expand.launches,
-              masked_cosine_topk.launches)
+    before = dict(build.LAUNCHES)
     corpus, queries, bitmap = _mk(200, 16, 3, seed=2)
     ids = np.random.default_rng(2).integers(-1, 200, (3, 7)).astype(np.int32)
     meta = _meta(200, 6, 3)
@@ -228,11 +328,15 @@ def test_ops_sends_cpu_tensors_to_plain_versions(monkeypatch):
     for got, want in zip(ops.fiber_expand_walk(*walk_args),
                          tref.fiber_expand_walk(*walk_args)):
         assert torch.equal(got, want)
+    assert torch.equal(ops.fiber_expand(*walk_args),
+                       tref.fiber_expand(*walk_args))
     fargs = (_t(meta), _t(f_np), _t(a_np))
     assert torch.equal(ops.filter_eval_batch(*fargs),
                        tref.filter_eval_batch(*fargs))
-    assert (filter_eval.launches, fiber_expand.launches,
-            masked_cosine_topk.launches) == before
+    one = tuple(_t(x) for x in _single_tables("active", 1))
+    assert torch.equal(ops.filter_eval(_t(meta), *one),
+                       tref.filter_eval(_t(meta), *one))
+    assert dict(build.LAUNCHES) == before
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -246,7 +350,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fiber_expand.fiber_expand_walk(_t(queries), _t(corpus), _t(ids),
                                        _t(bitmap))
+    with pytest.raises(ValueError, match="CUDA"):
+        fiber_expand.fiber_expand(_t(queries), _t(corpus), _t(ids),
+                                  _t(bitmap))
     f_np, a_np = _conj_tables(6, 1)
     with pytest.raises(ValueError, match="CUDA"):
         filter_eval.filter_eval_batch(_t(_meta(64, 6, 1)), _t(f_np),
                                       _t(a_np))
+    one = tuple(_t(x) for x in _single_tables("active", 1))
+    with pytest.raises(ValueError, match="CUDA"):
+        filter_eval.filter_eval(_t(_meta(64, 6, 1)), *one)
