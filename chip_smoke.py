@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py [--report PATH]
 
-Builds the hand-written kernels from ``src/repro_torch/kernels/csrc``,
-builds a paper-size index on the host (H&M scale: 105,100 x 2048, 24
-categorical fields plus two OR fields and a timestamp field; 1,344 more
-rows of the same corpus are held out for ingest), holds each of the five
-kernels against its plain PyTorch version on the card at the shapes its
-path gives it, and then drives three paths, each with the launch counts
-cleared just before it and read just after:
+Builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
+(logging what ``-Xptxas -v`` printed for each), builds a paper-size index
+on the host (H&M scale: 105,100 x 2048, 24 categorical fields plus two OR
+fields and a timestamp field; 1,344 more rows of the same corpus are held
+out for ingest), holds each of the five kernels against its plain PyTorch
+version on the card at the shapes its path gives it (K2 at the search's
+Q=64 and at Q=256; K3 on one-cluster masks at k=10 and on a random half
+mask at k=32) and K2/K3 also at ragged shapes, and then drives three
+paths, each with the launch counts cleared just before it and read just
+after:
 
 * the kernel/plain-version parity gate (``kernels.parity.parity_gate``),
   the path of K4 ``filter_eval`` and K5 ``fiber_expand``;
@@ -24,8 +27,10 @@ cleared just before it and read just after:
   come back, and the post-churn ids must agree with the same state
   searched on the host.
 
-Prints the kernels' timings as one JSON line, the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``. Any failed check exits
+Prints the kernels' timings as one JSON line (each record with its
+share of its bound and its time against one PyTorch call, both from this
+run), the card's name and power limit, and last
+``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero without the ``ok`` line; so does a machine without CUDA or a
 directory without the package. ``--report PATH`` also writes every
 measurement (and a profiler breakdown of one batch) to PATH as JSON.
@@ -43,11 +48,12 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32
-# CUDA-core FLOP/s; the kernels' scalar integer work is counted against
-# the fp32 rate
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32
+# CUDA-core FLOP/s and dense TF32 tensor-core FLOP/s; the kernels' scalar
+# integer work is counted against the fp32 rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 N_PAPER = 105_100   # H&M corpus rows (paper size)
 N_INSERT = 64 + 256 + 1024   # held-out rows, ingested in these batches
@@ -57,6 +63,7 @@ D = 2048
 N_FIELDS = 24
 K = 10              # results per query
 Q_KERNEL = 256      # kernel-phase batch
+SPIN_CYCLES = 2_000_000   # ~1 ms of spinning ahead of each timed run
 
 
 class SmokeFailure(Exception):
@@ -78,12 +85,16 @@ def card_line() -> str:
 
 def cuda_ms(fn, reps: int, flush) -> float:
     """Median device time of ``fn`` over ``reps`` runs (CUDA events around
-    each run, the L2 cache flushed before each, after a warm-up)."""
+    each run, the L2 cache flushed before each, after a warm-up). Each run
+    is queued behind a spin kernel of ~1 ms, so the host has enqueued the
+    flush and all of ``fn``'s launches before the first event fires: the
+    time is the card's, not the wrapper's Python."""
     import torch
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        torch.cuda._sleep(SPIN_CYCLES)
         flush.zero_()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -95,12 +106,102 @@ def cuda_ms(fn, reps: int, flush) -> float:
     return statistics.median(times)
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float,
+          ops_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
     """Least time the card could take: the larger of bytes over the memory
-    rate and operations over the fp32 rate, with the side that binds."""
+    rate and operations over their type's peak rate (fp32 unless given),
+    with the side that binds."""
     t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_o = n_ops / FP32_FLOP_PER_S * 1e3
+    t_o = n_ops / ops_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def ratios(rec: dict) -> dict:
+    """A timing record with its share of the bound (bound_ms / ms) and its
+    time against the library call (ms / library_ms), both from one call."""
+    lib = rec.get("library_ms")
+    return {**rec, "share_of_bound": rec["bound_ms"] / rec["ms"],
+            "vs_library": rec["ms"] / lib if lib else None}
+
+
+def check_walk(label, got, want) -> float:
+    """K2 against its plain version: identical -inf positions in both
+    outputs and rtol = atol = 1e-5; returns the max abs error of sims."""
+    import torch
+    for g, w in zip(got, want):
+        check(torch.equal(torch.isneginf(g), torch.isneginf(w)),
+              f"{label}: -inf positions differ")
+        check(torch.allclose(g, w, rtol=1e-5, atol=1e-5),
+              f"{label}: kernel != plain at rtol=atol=1e-5")
+    fin = torch.isfinite(want[0])
+    return float((got[0][fin] - want[0][fin]).abs().max()) if fin.any() \
+        else 0.0
+
+
+def check_topk(label, got, want, mask, queries, corpus) -> tuple:
+    """K3 against its plain version: identical fill, sims within 1e-4, and
+    ids equal up to near-ties: where they differ, the kernel's id must pass
+    the mask and score what the kernel says; no duplicates. Returns (max
+    abs error, id mismatches)."""
+    import torch
+    (s_k, i_k), (s_p, i_p) = got, want
+    fin = torch.isfinite(s_p)
+    check(torch.equal(torch.isfinite(s_k), fin), f"{label}: fill")
+    check(torch.allclose(s_k[fin], s_p[fin], rtol=1e-4, atol=1e-4),
+          f"{label}: sims differ beyond 1e-4")
+    diff = (i_k != i_p) & fin
+    if diff.any():
+        qi, _ = torch.nonzero(diff, as_tuple=True)
+        kid = i_k[diff].long()
+        check(bool(mask[qi, kid].all()), f"{label}: id fails mask")
+        true = (corpus[kid] * queries[qi]).sum(1)
+        check(torch.allclose(true, s_k[diff], rtol=1e-4, atol=1e-4),
+              f"{label}: id does not score its sim")
+    srt = i_k.sort(dim=1).values
+    check(not bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0))
+                   .any()), f"{label}: duplicate ids")
+    tie = (s_k[:, 1:] == s_k[:, :-1]) & fin[:, 1:]
+    check(bool((i_k[:, 1:] > i_k[:, :-1])[tie].all()),
+          f"{label}: equal sims not in increasing id order")
+    err = float((s_k[fin] - s_p[fin]).abs().max()) if fin.any() else 0.0
+    return err, int(diff.sum())
+
+
+def ragged_checks(dev, log) -> None:
+    """K2 and K3 against their plain versions off the path's shapes:
+    n % 32 != 0, d % 4 != 0 (the kernels' 4-byte copy path), Q below and
+    across the query tile, masks from sparse to dense, and a corpus of 37
+    rows repeated (exact ties, which must come out lowest id first)."""
+    import torch
+    from repro_torch.core.batched.bitmap import pack_bits
+    from repro_torch.kernels import fiber_expand, ref
+    from repro_torch.kernels import masked_cosine_topk as mct
+    gen = torch.Generator(dev).manual_seed(3)
+    cases = ((1000, 37, 70, 7, 5, 0.3, None),
+             (4133, 132, 130, 32, 50, 0.004, None),
+             (2500, 64, 64, 10, 96, 0.9, None),
+             (3000, 96, 20, 32, 8, 0.5, 37))
+    for n, d, q_n, k, r, dens, distinct in cases:
+        corpus = torch.randn(n, d, device=dev, generator=gen)
+        if distinct:
+            corpus = corpus[torch.arange(n, device=dev) % distinct]
+        queries = torch.randn(q_n, d, device=dev, generator=gen)
+        mask = torch.rand(q_n, n, device=dev, generator=gen) < dens
+        bm = pack_bits(mask)
+        err, mism = check_topk(
+            f"K3 n={n} d={d} Q={q_n}",
+            mct.masked_cosine_topk(queries, corpus, bm, k),
+            ref.masked_cosine_topk(queries, corpus, bm, k), mask, queries,
+            corpus)
+        ids = torch.randint(-1, n, (q_n, r), device=dev, generator=gen,
+                            dtype=torch.int32)
+        e2 = check_walk(f"K2 n={n} d={d} Q={q_n}",
+                        fiber_expand.fiber_expand_walk(queries, corpus, ids,
+                                                       bm),
+                        ref.fiber_expand_walk(queries, corpus, ids, bm))
+        log("ragged", n=n, d=d, Q=q_n, k=k, R=r, density=dens,
+            distinct_rows=distinct, k3_max_abs_err=err,
+            k3_id_mismatches=mism, k2_max_abs_err=e2)
 
 
 def build_corpus(log):
@@ -204,56 +305,64 @@ def kernel_phases(ds, index, batches, dev, flush, log):
     c = k1["conj"]
     n_bytes = meta.numel() * 4 + c["table_bytes"] + Q_KERNEL * W * 4
     b_ms, b_by = bound(n_bytes, 4.0 * meta.shape[0] * c["active_clauses"])
-    records["filter_eval_batch"] = dict(
+    records["filter_eval_batch"] = ratios(dict(
         name="filter_eval_batch", route="cuda", ok=True,
         source="src/repro_torch/kernels/csrc/filter_eval.cu",
         replaces="src/repro/kernels/filter_eval.py:172", launches=0,
         max_abs_err=0.0, ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=b_ms,
-        bound_by=b_by, library_ms=None)
+        bound_by=b_by, library_ms=None))
     log("K1", ok=True, **{f"{f}_{k}": v for f, r in k1.items()
                           for k, v in r.items()})
 
-    # K2: Q=256 walk hops, R = the adjacency width, d=2048
+    # K2: walk hops at the search's Q=64 and the kernel phase's Q=256, R =
+    # the adjacency width, d=2048
     rng = np.random.default_rng(0)
     adjacency = torch.from_numpy(index.graph.neighbors).to(dev)
     q_vecs = torch.from_numpy(np.stack([q.vector for q in conj])).to(dev)
     nodes = torch.from_numpy(rng.integers(0, ds.n, Q_KERNEL)).to(dev)
     ids = adjacency[nodes].contiguous()
     R = ids.shape[1]
-    s_k, p_k = fiber_expand.fiber_expand_walk(q_vecs, vectors, ids, pass_bm)
-    s_p, p_p = ref.fiber_expand_walk(q_vecs, vectors, ids, pass_bm)
-    torch.cuda.synchronize()
-    for got, want in ((s_k, s_p), (p_k, p_p)):
-        check(torch.equal(torch.isneginf(got), torch.isneginf(want)),
-              "K2: -inf positions differ")
-        check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
-              "K2: kernel != plain at rtol=atol=1e-5")
-    fin = torch.isfinite(s_p)
-    err = float((s_k[fin] - s_p[fin]).abs().max()) if fin.any() else 0.0
-    n_valid = int((ids >= 0).sum())
-    n_rows = int(torch.unique(ids[ids >= 0]).numel())
-    n_bytes = (q_vecs.numel() * 4 + n_rows * D * 4 + ids.numel() * 4
-               + n_valid * 4 + 2 * ids.numel() * 4)
-    b_ms, b_by = bound(n_bytes, 2.0 * D * n_valid)
+    k2 = {}
+    for q_n in (Q_KERNEL, 64):
+        qv = q_vecs[:q_n].contiguous()
+        ids_q = ids[:q_n].contiguous()
+        bm_q = pass_bm[:q_n].contiguous()
+        err = check_walk(
+            f"K2 Q={q_n}",
+            fiber_expand.fiber_expand_walk(qv, vectors, ids_q, bm_q),
+            ref.fiber_expand_walk(qv, vectors, ids_q, bm_q))
+        n_valid = int((ids_q >= 0).sum())
+        n_rows = int(torch.unique(ids_q[ids_q >= 0]).numel())
+        n_bytes = (qv.numel() * 4 + n_rows * D * 4 + ids_q.numel() * 4
+                   + n_valid * 4 + 2 * ids_q.numel() * 4)
+        b_ms, b_by = bound(n_bytes, 2.0 * D * n_valid)
+        safe_q = ids_q.clamp(min=0).long().flatten()
+
+        def k2_library(qv=qv, safe_q=safe_q, q_n=q_n):
+            rows = vectors.index_select(0, safe_q).view(q_n, R, D)
+            return torch.bmm(rows, qv.unsqueeze(2))
+
+        k2[f"q{q_n}"] = ratios(dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: fiber_expand.fiber_expand_walk(
+                qv, vectors, ids_q, bm_q), 50, flush),
+            plain_ms=cuda_ms(lambda: ref.fiber_expand_walk(
+                qv, vectors, ids_q, bm_q), 20, flush),
+            library_ms=cuda_ms(k2_library, 20, flush),
+            bound_ms=b_ms, bound_by=b_by, valid_ids=n_valid,
+            distinct_rows=n_rows))
+    m = k2[f"q{Q_KERNEL}"]
+    n_valid = m["valid_ids"]
     safe = ids.clamp(min=0).long().flatten()
-
-    def k2_library():
-        rows = vectors.index_select(0, safe).view(Q_KERNEL, R, D)
-        return torch.bmm(rows, q_vecs.unsqueeze(2))
-
-    records["fiber_expand_walk"] = dict(
+    records["fiber_expand_walk"] = ratios(dict(
         name="fiber_expand_walk", route="cuda", ok=True,
         source="src/repro_torch/kernels/csrc/fiber_expand.cu",
         replaces="src/repro/kernels/fiber_expand.py:52", launches=0,
-        max_abs_err=err,
-        ms=cuda_ms(lambda: fiber_expand.fiber_expand_walk(
-            q_vecs, vectors, ids, pass_bm), 50, flush),
-        plain_ms=cuda_ms(lambda: ref.fiber_expand_walk(
-            q_vecs, vectors, ids, pass_bm), 20, flush),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(k2_library, 20, flush))
-    log("K2", R=R, valid_ids=n_valid, distinct_rows=n_rows,
-        **records["fiber_expand_walk"])
+        max_abs_err=m["max_abs_err"], ms=m["ms"], plain_ms=m["plain_ms"],
+        bound_ms=m["bound_ms"], bound_by=m["bound_by"],
+        library_ms=m["library_ms"], shapes=k2))
+    log("K2", R=R, **{f"{lbl}_{k}": v for lbl, r in k2.items()
+                      for k, v in r.items()})
 
     # K3: k=10 over a one-cluster mask (the seed path's slot masks: each
     # query's best cluster), and k=32 over a random half of the corpus
@@ -269,54 +378,43 @@ def kernel_phases(ds, index, batches, dev, flush, log):
     k3 = {}
     for label, (mask, k) in masks.items():
         bm = pack_bits(mask)
-        s_k, i_k = mct.masked_cosine_topk(q_vecs, vectors, bm, k)
-        s_p, i_p = ref.masked_cosine_topk(q_vecs, vectors, bm, k)
-        torch.cuda.synchronize()
-        fin = torch.isfinite(s_p)
-        check(torch.equal(torch.isfinite(s_k), fin), f"K3 {label}: fill")
-        check(torch.allclose(s_k[fin], s_p[fin], rtol=1e-4, atol=1e-4),
-              f"K3 {label}: sims differ beyond 1e-4")
-        # ids agree up to near-ties: where they differ, the kernel's id
-        # must pass the mask, score what the kernel says, and be unique
-        diff = (i_k != i_p) & fin
-        if diff.any():
-            qi, _ = torch.nonzero(diff, as_tuple=True)
-            kid = i_k[diff].long()
-            check(bool(mask[qi, kid].all()), f"K3 {label}: id fails mask")
-            true = (vectors[kid] * q_vecs[qi]).sum(1)
-            check(torch.allclose(true, s_k[diff], rtol=1e-4, atol=1e-4),
-                  f"K3 {label}: id does not score its sim")
-        srt = i_k.sort(dim=1).values
-        check(not bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0))
-                       .any()), f"K3 {label}: duplicate ids")
-        err = float((s_k[fin] - s_p[fin]).abs().max()) if fin.any() else 0.0
+        err, mism = check_topk(
+            f"K3 {label}", mct.masked_cosine_topk(q_vecs, vectors, bm, k),
+            ref.masked_cosine_topk(q_vecs, vectors, bm, k), mask, q_vecs,
+            vectors)
         set_bits = int(mask.sum())
         rows_any = int(mask.any(dim=0).sum())
         n_bytes = (q_vecs.numel() * 4 + rows_any * D * 4 + bm.numel() * 4
                    + 2 * Q_KERNEL * k * 4)
-        b_ms, b_by = bound(n_bytes, 2.0 * D * set_bits)
+        # the kernel's products are 3xTF32 on the tensor cores: it is held
+        # to three TF32 products per multiply-add at the TF32 peak; the
+        # fp32 CUDA-core bound is kept beside it
+        n_ops = 2.0 * D * set_bits
+        b_ms, b_by = bound(n_bytes, 3 * n_ops, TF32_FLOP_PER_S)
+        fp32_ms, fp32_by = bound(n_bytes, n_ops)
 
         def k3_library(mask=mask, k=k):
             return torch.topk(torch.where(mask, q_vecs @ vectors.T,
                                           float("-inf")), k)
 
-        k3[label] = dict(
+        k3[label] = ratios(dict(
             ms=cuda_ms(lambda: mct.masked_cosine_topk(q_vecs, vectors, bm, k),
                        10, flush),
             plain_ms=cuda_ms(lambda: ref.masked_cosine_topk(
                 q_vecs, vectors, bm, k), 5, flush),
             library_ms=cuda_ms(k3_library, 5, flush),
-            bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-            id_mismatches=int(diff.sum()), set_bits=set_bits,
-            rows_any=rows_any)
+            bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=fp32_ms,
+            bound_fp32_by=fp32_by, max_abs_err=err,
+            id_mismatches=mism, k=k, set_bits=set_bits,
+            rows_any=rows_any))
     m = k3["one_cluster_k10"]
-    records["masked_cosine_topk"] = dict(
+    records["masked_cosine_topk"] = ratios(dict(
         name="masked_cosine_topk", route="cuda", ok=True,
         source="src/repro_torch/kernels/csrc/masked_cosine_topk.cu",
         replaces="src/repro/kernels/masked_cosine_topk.py:61", launches=0,
         max_abs_err=m["max_abs_err"], ms=m["ms"], plain_ms=m["plain_ms"],
         bound_ms=m["bound_ms"], bound_by=m["bound_by"],
-        library_ms=m["library_ms"])
+        library_ms=m["library_ms"], shapes=k3))
     log("K3", ok=True, **{f"{lbl}_{k}": v for lbl, r in k3.items()
                           for k, v in r.items()})
 
@@ -333,7 +431,7 @@ def kernel_phases(ds, index, batches, dev, flush, log):
     active = int((fields1 >= 0).sum())
     n_bytes = meta.numel() * 4 + f_np.nbytes + a_np.nbytes + W * 4
     b_ms, b_by = bound(n_bytes, 4.0 * meta.shape[0] * active)
-    records["filter_eval"] = dict(
+    records["filter_eval"] = ratios(dict(
         name="filter_eval", route="cuda", ok=True,
         source="src/repro_torch/kernels/csrc/filter_eval.cu",
         replaces="src/repro/kernels/filter_eval.py:276", launches=0,
@@ -342,7 +440,7 @@ def kernel_phases(ds, index, batches, dev, flush, log):
                    50, flush),
         plain_ms=cuda_ms(lambda: ref.filter_eval(meta, fields1, allowed1),
                          10, flush),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=b_ms, bound_by=b_by, library_ms=None))
     log("K4", active_clauses=active, pass_rows=int(popcount(got)),
         **records["filter_eval"])
 
@@ -368,7 +466,7 @@ def kernel_phases(ds, index, batches, dev, flush, log):
         sims = torch.bmm(rows, q_vecs.unsqueeze(2)).squeeze(2)
         return torch.where(ok_mask, sims, float("-inf"))
 
-    records["fiber_expand"] = dict(
+    records["fiber_expand"] = ratios(dict(
         name="fiber_expand", route="cuda", ok=True,
         source="src/repro_torch/kernels/csrc/fiber_expand.cu",
         replaces="src/repro/kernels/fiber_expand.py:91", launches=0,
@@ -378,9 +476,10 @@ def kernel_phases(ds, index, batches, dev, flush, log):
         plain_ms=cuda_ms(lambda: ref.fiber_expand(
             q_vecs, vectors, ids, pass_bm), 20, flush),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(k5_library, 20, flush))
+        library_ms=cuda_ms(k5_library, 20, flush)))
     log("K5", R=R, valid_ids=n_valid, passing_ids=n_pass,
         distinct_passing_rows=pass_rows, **records["fiber_expand"])
+    ragged_checks(dev, log)
     return records
 
 
@@ -717,6 +816,8 @@ def run(report_path: str | None) -> int:
     with ThreadPoolExecutor(len(build.KERNELS)) as pool:
         list(pool.map(build.load, build.KERNELS))
     log("kernel_build", s=time.time() - t)
+    for name in build.KERNELS:  # registers, shared memory, spills
+        log("ptxas", kernel=name, report=build.ptxas_report(name))
     ds, index, held = build_corpus(log)
     batches = make_batches(ds)
     flush = torch.empty(64 << 20, dtype=torch.int8, device=dev)

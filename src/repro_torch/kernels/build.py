@@ -9,8 +9,12 @@ it for every kernel at once, from one thread each, so the ``nvcc``
 processes run side by side).
 
 Libraries land in ``build/repro_torch/`` at the repository root (git
-ignores it), named by a hash of their source and flags, so an edited
-source is rebuilt and an unchanged one is reused.
+ignores it), named by a hash of their source, of every ``csrc`` header it
+includes (``#include "x.cuh"``, followed recursively) and of the flags, so
+an edited source or header is rebuilt and an unchanged one is reused.
+``nvcc`` runs with ``-Xptxas -v``; what ptxas prints (registers, shared
+memory and spills per kernel) is kept beside each library and returned by
+``ptxas_report``.
 
 ``LAUNCHES`` counts kernel launches by kernel name: each wrapper adds one
 where it launches its kernel and nowhere else, so a run that clears it
@@ -23,6 +27,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -33,7 +38,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("filter_eval", "fiber_expand", "masked_cosine_topk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -51,10 +57,32 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+def sources(name: str) -> list[pathlib.Path]:
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes with
+    quotes, followed recursively, in first-include order."""
+    out: list[pathlib.Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        todo += [path.parent / m.decode()
+                 for m in _INCLUDE.findall(path.read_bytes())]
+    return out
+
+
 def _lib_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def ptxas_report(name: str) -> str:
+    """What ptxas printed when kernel ``name``'s library was built (its
+    registers, shared memory and spills per kernel)."""
+    return _lib_path(name).with_suffix(".ptxas.txt").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -72,6 +100,7 @@ def load(name: str) -> ctypes.CDLL:
             if proc.returncode != 0:
                 os.unlink(tmp)
                 raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+            out.with_suffix(".ptxas.txt").write_text(proc.stdout)
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
         lib.kernel_error_string.restype = ctypes.c_char_p
@@ -84,6 +113,12 @@ def ptr(t: torch.Tensor | None) -> int | None:
     """Device address of a tensor for a ``c_void_p`` argument (None for
     an absent optional input, which the C side reads as a null pointer)."""
     return None if t is None else t.data_ptr()
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors on ``device`` (the wrappers size their
+    grids to it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream(device: torch.device) -> int:

@@ -1,0 +1,73 @@
+// Inline-PTX helpers shared by the kernels: asynchronous global -> shared
+// copies (cp.async, sm_80+) and the 3xTF32 tensor-core product
+// (mma.sync m16n8k8 tf32 with fp32 accumulation).
+#pragma once
+
+#include <stdint.h>
+
+namespace ptx {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; src_bytes < 16 zero-fills the
+// rest (0 copies nothing and reads nothing). Both addresses 16-byte aligned.
+__device__ __forceinline__ void copy16(void* dst, const void* src,
+                                       int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes global -> shared; src_bytes 0 writes a zero.
+__device__ __forceinline__ void copy4(void* dst, const void* src,
+                                      int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// Close the calling thread's outstanding copies into one group.
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of the calling thread's groups are in flight. The
+// copies it waited for are visible to the calling thread only: other
+// threads need a __syncwarp / __syncthreads after their own wait.
+template <int N>
+__device__ __forceinline__ void wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x rounded to TF32 (10 mantissa bits), round to nearest with ties away
+// from zero, as the fp32 bit pattern with its low 13 bits cleared: for
+// finite x the same bits as cvt.rna.tf32.f32, in two integer operations
+// instead of one conversion on the SM's slower conversion pipe.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo + O(2^-22 |x|): hi is x rounded to TF32, lo the remainder
+// rounded the same way.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c += a * b on one 16x8x8 tile: a is the row-major 16x8 A fragment, b the
+// column-major 8x8 B fragment, c the 16x8 fp32 accumulator fragment. Not
+// volatile, so the compiler may interleave independent products.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+}  // namespace ptx

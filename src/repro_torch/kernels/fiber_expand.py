@@ -10,14 +10,42 @@ The dispatcher in ``kernels/ops.py`` picks between them by device.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from repro_torch.kernels import build
 
-# 4 input pointers, (Q, R, d, W, vec4), then the outputs and the stream
-_C_ARGS_WALK = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+# K2: 4 input pointers, (Q, R, d, W, warps, span, smem, vec4), then the
+# outputs and the stream
+_C_ARGS_WALK = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3
+# K5: 4 input pointers, (Q, R, d, W, vec4), the output and the stream
 _C_ARGS_ONE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+
+# K2 blocks: up to 4 warps, each with two d-float row buffers beside the
+# block's staged query, in the H100's 227 KB of shared memory per block
+# less the kernel's 1.5 KB of static arrays; at least two blocks per SM
+WALK_WARPS = 4
+WALK_SLOTS = 2   # row buffers per warp (the kernel's kSlots)
+WALK_SMEM_LIMIT = 225 * 1024
+WALK_BLOCKS_PER_SM = 2
+
+
+def walk_plan(q_n: int, r: int, d: int, n_sm: int) -> tuple[int, int, int]:
+    """(warps per block, neighbour slots per block, shared-memory bytes)
+    of the K2 grid (ceil(r / span), q_n). R is split so that the grid
+    gives every SM ``WALK_BLOCKS_PER_SM`` blocks where R allows (at least
+    two slots per warp); raises if d is too large for one warp's two row
+    buffers."""
+    row = math.ceil(d / 4) * 16
+    warps = min(WALK_WARPS, (WALK_SMEM_LIMIT // row - 1) // WALK_SLOTS)
+    if warps < 1:
+        raise ValueError(f"fiber_expand_walk: d={d} leaves no room for two "
+                         f"row buffers in {WALK_SMEM_LIMIT} bytes")
+    split = min(math.ceil(WALK_BLOCKS_PER_SM * n_sm / max(q_n, 1)),
+                math.ceil(r / (2 * warps)))
+    span = math.ceil(r / max(split, 1))
+    return warps, span, (1 + WALK_SLOTS * warps) * row
 
 
 def _check(what: str, q_vecs, corpus, ids, bitmap) -> tuple:
@@ -51,13 +79,14 @@ def fiber_expand_walk(q_vecs: torch.Tensor, corpus: torch.Tensor,
     R = ids.shape[1]
     sims = torch.empty((q_n, R), dtype=torch.float32, device=device)
     sims_pass = torch.empty_like(sims)
+    warps, span, smem = walk_plan(q_n, R, d, build.sm_count(device))
     lib = build.load("fiber_expand")
     fn = lib.fiber_expand_walk_launch
     fn.argtypes = _C_ARGS_WALK
     fn.restype = ctypes.c_int
     rc = fn(build.ptr(q_vecs), build.ptr(corpus), build.ptr(ids),
-            build.ptr(bitmap), q_n, R, d, bitmap.shape[1], vec4,
-            build.ptr(sims), build.ptr(sims_pass), build.stream(device))
+            build.ptr(bitmap), q_n, R, d, bitmap.shape[1], warps, span, smem,
+            vec4, build.ptr(sims), build.ptr(sims_pass), build.stream(device))
     build.check(lib, rc, what)
     build.LAUNCHES[what] += 1
     return sims, sims_pass

@@ -9,16 +9,36 @@ dispatcher in ``kernels/ops.py`` picks between them by device.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from repro_torch.kernels import build
 
-# the kernel keeps each query's list in one warp's registers
+# the kernel keeps each query's list in one warp's lanes
 MAX_K = 32
+# a pass-1 block: 64 queries x one chunk of 32..64 bitmap words (1,024 to
+# 2,048 rows); two blocks fit on an SM (the kernel's ~107 KB of shared
+# memory each)
+QUERY_TILE = 64
+CHUNK_WORDS = (32, 64)
+BLOCKS_PER_SM = 2
 
-_C_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+_C_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
            + [ctypes.c_void_p] * 5)
+
+
+def plan(q_n: int, n: int, n_sm: int) -> tuple[int, int, int]:
+    """(query tiles, bitmap words per corpus chunk, chunks) of the pass-1
+    grid: the chunk is sized so that the grid fills every SM with
+    ``BLOCKS_PER_SM`` blocks where the corpus allows, within
+    ``CHUNK_WORDS``."""
+    q_tiles = math.ceil(q_n / QUERY_TILE)
+    words = math.ceil(n / 32)
+    want = math.ceil(BLOCKS_PER_SM * n_sm / max(q_tiles, 1))
+    lo, hi = CHUNK_WORDS
+    chunk_words = min(hi, max(lo, math.ceil(words / want)))
+    return q_tiles, chunk_words, math.ceil(words / chunk_words)
 
 
 def masked_cosine_topk(queries: torch.Tensor, corpus: torch.Tensor,
@@ -44,10 +64,9 @@ def masked_cosine_topk(queries: torch.Tensor, corpus: torch.Tensor,
                          f"corpus {tuple(corpus.shape)}, bitmap "
                          f"{tuple(bitmap.shape)}")
     lib = build.load("masked_cosine_topk")
-    lib.masked_cosine_topk_chunks.argtypes = [ctypes.c_int]
-    lib.masked_cosine_topk_chunks.restype = ctypes.c_int
-    n_chunks = lib.masked_cosine_topk_chunks(n)
-    vec4 = int(d % 4 == 0 and corpus.data_ptr() % 16 == 0)
+    _, chunk_words, n_chunks = plan(q_n, n, build.sm_count(device))
+    vec4 = int(d % 4 == 0 and corpus.data_ptr() % 16 == 0
+               and queries.data_ptr() % 16 == 0)
     part_s = torch.empty((q_n, n_chunks, k), dtype=torch.float32,
                          device=device)
     part_i = torch.empty((q_n, n_chunks, k), dtype=torch.int32,
@@ -58,9 +77,9 @@ def masked_cosine_topk(queries: torch.Tensor, corpus: torch.Tensor,
     fn.argtypes = _C_ARGS
     fn.restype = ctypes.c_int
     rc = fn(build.ptr(queries), build.ptr(corpus), build.ptr(bitmap),
-            q_n, n, d, bitmap.shape[1], k, vec4, build.ptr(part_s),
-            build.ptr(part_i), build.ptr(sims), build.ptr(ids),
-            build.stream(device))
+            q_n, n, d, bitmap.shape[1], k, chunk_words, n_chunks, vec4,
+            build.ptr(part_s), build.ptr(part_i), build.ptr(sims),
+            build.ptr(ids), build.stream(device))
     build.check(lib, rc, what)
     build.LAUNCHES[what] += 1
     return sims, ids

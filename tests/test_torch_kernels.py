@@ -11,6 +11,11 @@ rtol=atol=1e-4, the reference's own kernel-vs-oracle bar. K3
 (masked_cosine_topk) sims at rtol=atol=1e-4 (the same bar), ids equal on
 tie-free random data, and a tie-heavy row must give the lowest ids first.
 
+The CUDA kernels themselves run only on the card (``chip_smoke.py``);
+here their host-side tiling (``masked_cosine_topk.plan``,
+``fiber_expand.walk_plan``) is checked at the smoke's shapes and ragged
+ones, and K3's 3xTF32 split is emulated in torch to pin its numerics.
+
 ``repro.core`` is imported before ``repro.kernels``: the reference's
 ``kernels/ops.py`` imports ``repro.core``, whose ``device_atlas`` imports
 ``repro.kernels`` back.
@@ -289,6 +294,111 @@ def test_masked_cosine_topk_ties_lowest_id_first():
         i_t[1].numpy(),
         np.concatenate([np.arange(400, 448, 2), np.arange(448, 450),
                         np.arange(0, 6)]))
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 as ``cvt.rna.tf32.f32`` rounds and the K3 kernel's
+    ``tf32_rna`` computes it: add half the weight of the 13 mantissa bits
+    TF32 drops to the bit pattern (round to nearest, ties away from zero),
+    then clear them."""
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    r = (u + 0x1000) & 0xFFFFE000
+    return torch.where(r >= 2**31, r - 2**32, r).to(torch.int32).view(
+        torch.float32)
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    bits = np.array([0x3F801000, 0xBF801000, 0x3F800FFF, 0x3F801001,
+                     0x3F7FF000, 0x7F7FF000], np.uint32)
+    got = _tf32_rna(torch.from_numpy(bits.view(np.float32))).numpy()
+    np.testing.assert_array_equal(
+        got.view(np.uint32),
+        np.array([0x3F802000, 0xBF802000, 0x3F800000, 0x3F802000,
+                  0x3F800000, 0x7F800000], np.uint32))
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        10_000).astype(np.float32))
+    r = _tf32_rna(x)
+    assert not (r.view(torch.int32) & 0x1FFF).any()
+    # nearest: within half a TF32 ulp (2^-11 relative)
+    assert ((r - x).abs() <= x.abs() * 2.0**-11).all()
+
+
+def test_3xtf32_split_holds_fp32_accuracy():
+    """The K3 kernel's products: each operand splits into hi = tf32(x) and
+    lo = tf32(x - hi), and lo*hi + hi*lo + hi*hi accumulate in fp32. On unit
+    vectors at d = 2048 the three products land within 1e-6 of the fp32
+    product (as close to the float64 truth as fp32 itself); one TF32
+    product alone does not."""
+    rng = np.random.default_rng(0)
+    d = 2048
+    q = rng.standard_normal((64, d))
+    x = rng.standard_normal((2000, d))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    truth = q @ x.T
+    q32, x32 = torch.from_numpy(q.astype(np.float32)), \
+        torch.from_numpy(x.astype(np.float32))
+    fp32 = (q32 @ x32.T).double().numpy()
+    q_hi, x_hi = _tf32_rna(q32), _tf32_rna(x32)
+    q_lo, x_lo = _tf32_rna(q32 - q_hi), _tf32_rna(x32 - x_hi)
+    # TF32 x TF32 products are exact in fp32 (11 + 11 significant bits), so
+    # fp32 matmuls of the parts are the tensor cores' products
+    three = (q_lo @ x_hi.T + q_hi @ x_lo.T + q_hi @ x_hi.T).double().numpy()
+    one = (q_hi @ x_hi.T).double().numpy()
+    err3 = np.abs(three - fp32).max()
+    err1 = np.abs(one - fp32).max()
+    assert err3 < 1e-6, err3
+    assert err1 > 1e-6, err1
+    assert np.abs(three - truth).max() < 2 * np.abs(fp32 - truth).max() \
+        + 1e-7
+
+
+@pytest.mark.parametrize("q_n,n,want", [
+    (256, 105_100, (4, 50, 66)),    # the smoke's kernel phase
+    (64, 105_100, (1, 32, 103)),    # the search's Q=64 batches
+    (6, 800, (1, 32, 1)),           # the parity gate's probes
+    (70, 1000, (2, 32, 1)),         # n % 32 != 0, Q across one tile
+    (130, 4133, (3, 32, 5)),
+    (1, 1, (1, 32, 1)),
+])
+def test_masked_cosine_topk_plan(q_n, n, want):
+    """K3's pass-1 grid: query tiles of 64, chunks of 32-64 bitmap words
+    sized so that the grid gives each of 132 SMs two blocks where the
+    corpus allows; the chunks cover every word exactly once."""
+    got = masked_cosine_topk.plan(q_n, n, 132)
+    assert got == want
+    q_tiles, chunk_words, n_chunks = got
+    words = -(-n // 32)
+    assert q_tiles * masked_cosine_topk.QUERY_TILE >= q_n
+    assert 32 <= chunk_words <= 64
+    assert (n_chunks - 1) * chunk_words < words <= n_chunks * chunk_words
+
+
+@pytest.mark.parametrize("q_n,r,d,want", [
+    (256, 96, 2048, (4, 48, 73_728)),   # the smoke's kernel phase
+    (64, 96, 2048, (4, 20, 73_728)),    # the search's Q=64 hops
+    (6, 24, 64, (4, 8, 2_304)),         # the parity gate's probes
+    (3, 5, 37, (4, 5, 1_440)),          # d % 4 != 0, R below a warp
+    (1, 96, 16_384, (1, 2, 196_608)),   # one warp's two rows fill the block
+])
+def test_fiber_expand_walk_plan(q_n, r, d, want):
+    """K2's grid: blocks of up to 4 warps with a query and two row buffers
+    per warp in shared memory, R split so that even Q = 64 gives each of
+    132 SMs two blocks; every neighbour slot belongs to one block."""
+    got = fiber_expand.walk_plan(q_n, r, d, 132)
+    assert got == want
+    warps, span, smem = got
+    blocks = -(-r // span)
+    assert (blocks - 1) * span < r <= blocks * span
+    assert smem == (1 + 2 * warps) * (-(-d // 4) * 16)
+    assert smem <= fiber_expand.WALK_SMEM_LIMIT
+    if q_n * -(-r // (2 * warps)) >= 2 * 132:
+        assert q_n * blocks >= 2 * 132
+
+
+def test_fiber_expand_walk_plan_refuses_huge_rows():
+    with pytest.raises(ValueError, match="row buffers"):
+        fiber_expand.walk_plan(1, 96, 30_000, 132)
 
 
 def test_top_k_matches_lax_top_k_on_ties():
