@@ -10,7 +10,9 @@ fields and a timestamp field; 1,344 more rows of the same corpus are held
 out for ingest), holds each of the five kernels against its plain PyTorch
 version on the card at the shapes its path gives it (K2 at the search's
 Q=64 and at Q=256; K3 on one-cluster masks at k=10 and on a random half
-mask at k=32) and K2/K3 also at ragged shapes, and then drives three
+mask at k=32) and also at ragged shapes (K1 in its three forms across its
+tile and query-group edges; K2, K3 and K5 at n % 32 != 0 and d % 4 != 0;
+K5 with no valid id, no pass bit and every pass bit), and then drives three
 paths, each with the launch counts cleared just before it and read just
 after:
 
@@ -167,15 +169,138 @@ def check_topk(label, got, want, mask, queries, corpus) -> tuple:
     return err, int(diff.sum())
 
 
+def check_expand(label, got, want) -> float:
+    """K5 against its plain version: identical -inf positions and sims
+    within 1e-4; returns the max abs error."""
+    import torch
+    check(torch.equal(torch.isneginf(got), torch.isneginf(want)),
+          f"{label}: -inf positions differ")
+    fin = torch.isfinite(want)
+    err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+    check(err <= 1e-4, f"{label}: max abs err {err} > 1e-4")
+    return err
+
+
+def k1_meta(n, vocab, gen, dev, unpopulated=0.03):
+    """(n, F) int32 metadata on the card: field f's codes uniform in
+    [0, vocab[f]), a share ``unpopulated`` of the entries -1."""
+    import torch
+    top = torch.as_tensor(vocab, device=dev, dtype=torch.float64)
+    u = torch.rand(n, len(vocab), device=dev, generator=gen,
+                   dtype=torch.float64)
+    meta = (u * top).long().clamp(max=max(vocab) - 1)
+    hole = torch.rand(n, len(vocab), device=dev, generator=gen) < unpopulated
+    return torch.where(hole, -1, meta).to(torch.int32).contiguous()
+
+
+def k1_tables(q_n, D, C, vocab, v_cap, gen, dev, *, fields_from=None,
+              p_value=0.3, intervals=False, min_live=1):
+    """Random K1 clause tables on the card, (Q, D, C): each live disjunct
+    (min_live..D of them a query) tests 1..C distinct fields of
+    ``fields_from`` (default all; -1 for the rest, -2 for dead
+    disjuncts), each code below min(vocab, v_cap) allowed with
+    probability ``p_value``. With ``intervals``, half the clauses are
+    windows [lo, hi] (lo <= hi) and the others carry a row with lo > hi,
+    which the kernels read as a bitmap clause. Returns (fields, allowed,
+    n_disj, bounds or None)."""
+    import torch
+    from repro_torch.core.batched.bitmap import pack_bits
+
+    def rand(*shape):
+        return torch.rand(shape, device=dev, generator=gen)
+
+    pool = torch.as_tensor(fields_from if fields_from is not None
+                           else range(len(vocab)), device=dev)
+    voc = torch.as_tensor(vocab, device=dev)
+    fields = pool[torch.argsort(rand(q_n, D, pool.numel()), dim=2)[..., :C]]
+    n_act = torch.randint(1, C + 1, (q_n, D, 1), device=dev, generator=gen)
+    fields = torch.where(torch.arange(C, device=dev) < n_act, fields, -1)
+    n_disj = torch.randint(min_live, D + 1, (q_n,), device=dev,
+                           generator=gen, dtype=torch.int32)
+    dead = torch.arange(D, device=dev)[None, :, None] >= n_disj[:, None, None]
+    fields = torch.where(dead, -2, fields).to(torch.int32).contiguous()
+    top = voc[fields.clamp(min=0).long()]                   # (Q, D, C)
+    bits = ((rand(q_n, D, C, v_cap) < p_value)
+            & (torch.arange(v_cap, device=dev) < top[..., None])
+            & (fields >= 0)[..., None])
+    allowed = pack_bits(bits.view(-1, v_cap)).view(q_n, D, C, v_cap // 32)
+    bounds = None
+    if intervals:
+        lo = (rand(q_n, D, C) * top).long()
+        hi = lo + (rand(q_n, D, C) * top * 0.5).long()
+        iv = rand(q_n, D, C) < 0.5
+        bounds = torch.stack([torch.where(iv, lo, hi + 1),
+                              torch.where(iv, hi, lo)], dim=-1)
+        bounds = bounds.to(torch.int32).contiguous()
+    return fields, allowed.contiguous(), n_disj, bounds
+
+
+def ragged_k1(dev, log) -> None:
+    """K1 in its three forms, bit-exact against its plain version, at
+    shapes across its tile and query-group edges: n % 32 != 0 and n % 256
+    != 0, n < 32, F even (the padded shared-memory stride), Q = 1 and
+    Q = group + 1 (the plan's group forced, so a second group holds one
+    query; with D = 8 and Wv = 32 a group spans several table chunks),
+    metadata codes -1 and >= v_cap, interval rows with lo > hi, and a
+    batch whose clauses are all inactive (every row passes, pad bits 0)."""
+    import torch
+    from repro_torch.core.batched.bitmap import popcount
+    from repro_torch.kernels import build, filter_eval, ref
+    gen = torch.Generator(dev).manual_seed(4)
+    plan = filter_eval.filter_plan
+    # n, F, Q, forced group (None: the plan's), form, D, v_cap
+    cases = ((1000, 27, 1, None, "conj", 1, 256),
+             (1000, 26, 9, 8, "bounds", 8, 1024),
+             (31, 8, 5, None, "inactive", 1, 64),
+             (2049, 27, 70, None, "bounds", 2, 1024),
+             (600, 5, 33, 32, "dnf", 8, 1024),
+             (4133, 12, 17, 16, "conj", 1, 1024))
+    for n, F, q_n, group, form, D, v_cap in cases:
+        # codes up to v_cap + 99: some at or beyond v_cap
+        vocab = [v_cap + 100] * F
+        meta = k1_meta(n, vocab, gen, dev)
+        fields, allowed, nd, bounds = k1_tables(
+            q_n, D, 4, vocab, v_cap, gen, dev, intervals=form == "bounds")
+        if form in ("conj", "inactive"):
+            fields, allowed, nd = fields[:, 0].contiguous(), \
+                allowed[:, 0].contiguous(), None
+            if form == "inactive":
+                fields = torch.full_like(fields, -1)
+        rows, g, smem = plan(q_n, n, F, D if fields.ndim == 3 else 1, 4,
+                             v_cap // 32, build.sm_count(dev))
+        if group is not None:  # the plan with another group size
+            def forced(*args, group=group):
+                rows, _, smem = plan(*args)
+                return rows, group, smem
+            filter_eval.filter_plan = forced
+        try:
+            got = filter_eval.filter_eval_batch(meta, fields, allowed, nd,
+                                                bounds)
+        finally:
+            filter_eval.filter_plan = plan
+        want = ref.filter_eval_batch(meta, fields, allowed, nd, bounds)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"K1 {form} n={n} F={F} Q={q_n}: kernel != plain")
+        if form == "inactive":  # n = 31: every row passes, no pad bit
+            check(bool((got == (1 << n) - 1).all()), f"K1 n={n}: pad bits")
+        log("ragged_k1", n=n, F=F, Q=q_n, form=form, D=D, v_cap=v_cap,
+            rows=rows, group=group or g, smem=smem,
+            pass_bits=int(popcount(got).sum()))
+
+
 def ragged_checks(dev, log) -> None:
-    """K2 and K3 against their plain versions off the path's shapes:
-    n % 32 != 0, d % 4 != 0 (the kernels' 4-byte copy path), Q below and
-    across the query tile, masks from sparse to dense, and a corpus of 37
-    rows repeated (exact ties, which must come out lowest id first)."""
+    """K1-K3 and K5 against their plain versions off the path's shapes:
+    K1 as ``ragged_k1`` says; for the rest n % 32 != 0, d % 4 != 0 (the
+    kernels' 4-byte copy path), Q below and across the query tile, masks
+    from sparse to dense, a corpus of 37 rows repeated (exact ties, which
+    must come out lowest id first), and K5 with every id -1, with no pass
+    bit set and with every pass bit set."""
     import torch
     from repro_torch.core.batched.bitmap import pack_bits
     from repro_torch.kernels import fiber_expand, ref
     from repro_torch.kernels import masked_cosine_topk as mct
+    ragged_k1(dev, log)
     gen = torch.Generator(dev).manual_seed(3)
     cases = ((1000, 37, 70, 7, 5, 0.3, None),
              (4133, 132, 130, 32, 50, 0.004, None),
@@ -199,9 +324,29 @@ def ragged_checks(dev, log) -> None:
                         fiber_expand.fiber_expand_walk(queries, corpus, ids,
                                                        bm),
                         ref.fiber_expand_walk(queries, corpus, ids, bm))
+        e5 = check_expand(f"K5 n={n} d={d} Q={q_n}",
+                          fiber_expand.fiber_expand(queries, corpus, ids, bm),
+                          ref.fiber_expand(queries, corpus, ids, bm))
         log("ragged", n=n, d=d, Q=q_n, k=k, R=r, density=dens,
             distinct_rows=distinct, k3_max_abs_err=err,
-            k3_id_mismatches=mism, k2_max_abs_err=e2)
+            k3_id_mismatches=mism, k2_max_abs_err=e2, k5_max_abs_err=e5)
+    # K5: no id, no pass bit, every pass bit (d % 4 != 0 in the first two)
+    for n, d, q_n, r, ids_kind, bits in ((700, 37, 9, 24, "none", "all"),
+                                         (700, 130, 9, 96, "random", "none"),
+                                         (700, 64, 200, 96, "random", "all")):
+        corpus = torch.randn(n, d, device=dev, generator=gen)
+        queries = torch.randn(q_n, d, device=dev, generator=gen)
+        mask = torch.full((q_n, n), bits == "all", device=dev)
+        bm = pack_bits(mask)
+        ids = torch.randint(-1, n, (q_n, r), device=dev, generator=gen,
+                            dtype=torch.int32)
+        if ids_kind == "none":
+            ids = torch.full_like(ids, -1)
+        got = fiber_expand.fiber_expand(queries, corpus, ids, bm)
+        e5 = check_expand(f"K5 ids={ids_kind} bits={bits} d={d}", got,
+                          ref.fiber_expand(queries, corpus, ids, bm))
+        log("ragged_k5", n=n, d=d, Q=q_n, R=r, ids=ids_kind, pass_bits=bits,
+            finite=int(torch.isfinite(got).sum()), max_abs_err=e5)
 
 
 def build_corpus(log):
@@ -445,14 +590,10 @@ def kernel_phases(ds, index, batches, dev, flush, log):
         **records["filter_eval"])
 
     # K5: the K2 shapes (Q=256, R=96, d=2048), one pass-masked output
-    s_k = fiber_expand.fiber_expand(q_vecs, vectors, ids, pass_bm)
     s_p = ref.fiber_expand(q_vecs, vectors, ids, pass_bm)
-    torch.cuda.synchronize()
-    check(torch.equal(torch.isneginf(s_k), torch.isneginf(s_p)),
-          "K5: -inf positions differ")
+    err = check_expand("K5", fiber_expand.fiber_expand(q_vecs, vectors, ids,
+                                                       pass_bm), s_p)
     fin = torch.isfinite(s_p)
-    err = float((s_k[fin] - s_p[fin]).abs().max()) if fin.any() else 0.0
-    check(err <= 1e-4, f"K5: max abs err {err} > 1e-4")
     n_pass = int(fin.sum())
     pass_rows = int(torch.unique(ids[fin]).numel())
     # the kernel reads a row only where its pass bit is set

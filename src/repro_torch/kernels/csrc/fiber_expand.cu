@@ -15,24 +15,24 @@
 // bytes each SM keeps in flight. The TPU version DMA'd one (1, d) row per
 // grid step through a scalar-prefetched id.
 //
-// K2's design: a block owns one query and a span of its R neighbour slots
-// (the wrapper splits R so that even Q = 64 gives every SM two blocks or
-// more). The query vector is staged once per block by 16-byte cp.async
-// copies, issued first and overlapped with the first row copies. The
-// block's pad ids (-1, most of the slots on the walk) are written as -inf
-// at once and compacted away with a ballot, so no warp waits on them; each
-// valid id's pass bit is probed in the same step. Each warp then walks its
-// share of the valid rows with two row buffers in shared memory: the next
-// row's copy (16-byte cp.async, 512 contiguous bytes per warp instruction)
-// is in flight while the current row is dotted against the staged query,
-// so a block of four warps keeps up to 64 KB of rows in flight and three
-// blocks fit on an SM (73 KB of shared memory each at d = 2048).
-//
-// K5 keeps the first port's kernel (the template below, used for K5
-// alone): one warp per (q, r) reading the row with float4 loads against a
-// query staged per block of 8 neighbours, probing the pass bit first and
-// skipping the row read where it is 0 (its output is -inf whatever the
-// dot), so it moves only the rows that pass.
+// The design: a block owns one query and a span of its R neighbour slots
+// (the wrapper's walk_plan splits R so that even Q = 64 gives every SM two
+// blocks or more). The slots a block reads a row for are compacted in slot
+// order with a ballot, and every other slot is written -inf at once, so no
+// warp waits on them: for K2 the valid ids (pad ids -1 are most of the
+// slots on the walk), for K5 the ids that are valid AND whose pass bit is
+// set (K5's output is -inf wherever the bit is 0, whatever the dot). The
+// pass bit is probed in the same step. The query vector is staged once per
+// block by 16-byte cp.async copies: K2 issues it first, overlapped with
+// the id loads; K5 only once the compaction has found a slot to read, so a
+// block of K5 with none (most of them: a few percent of a walk's ids pass)
+// reads its ids and bitmap words and nothing else. Each warp then walks
+// its share of the compacted rows with two row buffers in shared memory:
+// the next row's copy (16-byte cp.async, 512 contiguous bytes per warp
+// instruction) is in flight while the current row is dotted against the
+// staged query, so a block of four warps keeps up to 64 KB of rows in
+// flight and three blocks fit on an SM (73 KB of shared memory each at
+// d = 2048).
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -56,9 +56,12 @@ __device__ __forceinline__ void copy_vec(float* dst, const float* src, int d,
   }
 }
 
-// K2: grid (ceil(R / span), Q), blockDim = 32 * warps (<= 128); dynamic
+// grid (ceil(R / span), Q), blockDim = 32 * warps (<= 128); dynamic
 // shared memory (1 + kSlots * warps) * ceil4(d) floats: the query, then
-// kSlots row buffers per warp.
+// kSlots row buffers per warp. kWalk: K2 (both outputs, a row read for
+// every valid id); else K5 (sims_pass only, a row read only where the id
+// is valid and its pass bit set; sims is unused).
+template <bool kWalk>
 __global__ void __launch_bounds__(kMaxWalkThreads) fiber_walk_kernel(
     const float* __restrict__ q_vecs, const float* __restrict__ corpus,
     const int* __restrict__ ids, const unsigned int* __restrict__ bitmap,
@@ -82,21 +85,29 @@ __global__ void __launch_bounds__(kMaxWalkThreads) fiber_walk_kernel(
   const int r_end = min(R, r_begin + span);
   const unsigned int* q_bits = bitmap + (size_t)q * W;
 
-  // the query vector: every thread's first copy group
-  copy_vec(s_q, q_vecs + (size_t)q * d, d, vec4, tid, blockDim.x);
-  ptx::commit();
+  // the query vector, every thread's first copy group: K2 at once, K5
+  // once a slot passes
+  const float* q_src = q_vecs + (size_t)q * d;
+  bool q_issued = kWalk;
+  if (kWalk) {
+    copy_vec(s_q, q_src, d, vec4, tid, blockDim.x);
+    ptx::commit();
+  }
   bool q_ready = false;
   for (int w0 = r_begin; w0 < r_end; w0 += blockDim.x) {
-    // pad ids are written at once; the valid ones are compacted in slot
-    // order with their pass bits
+    // the slots read no row for are written at once; the rest are
+    // compacted in slot order with their pass bits
     const int r = w0 + tid;
     const int nid = r < r_end ? __ldg(ids + qr + r) : -1;
-    const bool valid = nid >= 0;
-    if (r < r_end && !valid) {
-      sims[qr + r] = -INFINITY;
+    // K5 takes a slot on its pass bit too; K2's bit is probed below
+    const bool take =
+        nid >= 0 &&
+        (kWalk || ((__ldg(q_bits + (nid >> 5)) >> (nid & 31)) & 1u));
+    if (r < r_end && !take) {
+      if (kWalk) sims[qr + r] = -INFINITY;
       sims_pass[qr + r] = -INFINITY;
     }
-    const unsigned bal = __ballot_sync(kFull, valid);
+    const unsigned bal = __ballot_sync(kFull, take);
     if (lane == 0) s_count[warp] = __popc(bal);
     __syncthreads();
     int off = 0, total = 0;
@@ -105,13 +116,19 @@ __global__ void __launch_bounds__(kMaxWalkThreads) fiber_walk_kernel(
       off += w < warp ? c : 0;
       total += c;
     }
-    if (valid) {
+    if (take) {
       const int p = off + __popc(bal & ((1u << lane) - 1u));
       s_nid[p] = nid;
       s_pos[p] = r;
-      s_pass[p] = (__ldg(q_bits + (nid >> 5)) >> (nid & 31)) & 1u;
+      s_pass[p] =
+          kWalk ? (__ldg(q_bits + (nid >> 5)) >> (nid & 31)) & 1u : 1u;
     }
     __syncthreads();
+    if (!q_issued && total > 0) {  // block-uniform: K5's first taken slot
+      copy_vec(s_q, q_src, d, vec4, tid, blockDim.x);
+      ptx::commit();
+      q_issued = true;
+    }
     // warp w takes the compacted rows w, w + n_warps, ...: a ring of
     // kSlots row buffers keeps kSlots - 1 rows' copies in flight while the
     // current row is dotted
@@ -126,7 +143,7 @@ __global__ void __launch_bounds__(kMaxWalkThreads) fiber_walk_kernel(
       issue(i);
       ptx::commit();
     }
-    if (!q_ready) {  // the query group is complete and visible to all
+    if (!q_ready && q_issued) {  // the query group is complete and visible
       ptx::wait_group<kSlots - 1>();
       __syncthreads();
       q_ready = true;
@@ -151,7 +168,7 @@ __global__ void __launch_bounds__(kMaxWalkThreads) fiber_walk_kernel(
       }
       for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
       if (lane == 0) {
-        sims[qr + s_pos[j]] = acc;
+        if (kWalk) sims[qr + s_pos[j]] = acc;
         sims_pass[qr + s_pos[j]] = s_pass[j] ? acc : -INFINITY;
       }
       __syncwarp();  // every lane is done with `cur` before it is refilled
@@ -160,75 +177,28 @@ __global__ void __launch_bounds__(kMaxWalkThreads) fiber_walk_kernel(
   }
 }
 
-// K5 below: the first port's kernel, one warp per (q, r)
-constexpr int kWarps = 8;
-
-// kWalk: K2 (both outputs, every valid row read); else K5 (sims_pass
-// only, rows read only where the pass bit is set; sims is unused)
-template <bool kWalk>
-__global__ void fiber_expand_kernel(
-    const float* __restrict__ q_vecs, const float* __restrict__ corpus,
-    const int* __restrict__ ids, const unsigned int* __restrict__ bitmap,
-    int R, int d, int W, int vec4, float* __restrict__ sims,
-    float* __restrict__ sims_pass) {
-  extern __shared__ float4 s_q4[];
-  float* s_q = reinterpret_cast<float*>(s_q4);
-  const int q = blockIdx.y;
-  const float* qv = q_vecs + (size_t)q * d;
-  for (int i = threadIdx.x; i < d; i += blockDim.x) s_q[i] = qv[i];
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kWarps + warp;
-  if (r >= R) return;  // warp-uniform
-  const int nid = ids[(size_t)q * R + r];
-  float s_all = -INFINITY;
-  float s_pass = -INFINITY;
-  // warp-uniform: every lane read the same id and the same bitmap word
-  const bool pass =
-      nid >= 0 && ((__ldg(bitmap + (size_t)q * W + (nid >> 5)) >> (nid & 31)) & 1u);
-  if (nid >= 0 && (kWalk || pass)) {
-    const float* row = corpus + (size_t)nid * d;
-    float acc = 0.f;
-    if (vec4) {
-      const float4* row4 = reinterpret_cast<const float4*>(row);
-      for (int i = lane; i < d / 4; i += 32) {
-        const float4 a = __ldg(row4 + i);
-        const float4 b = s_q4[i];
-        acc += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-      }
-    } else {
-      for (int i = lane; i < d; i += 32) acc += __ldg(row + i) * s_q[i];
-    }
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    s_all = acc;
-    if (pass) s_pass = acc;
-  }
-  if (lane == 0) {
-    if (kWalk) sims[(size_t)q * R + r] = s_all;
-    sims_pass[(size_t)q * R + r] = s_pass;
-  }
-}
-
 template <bool kWalk>
 int launch(const void* q_vecs, const void* corpus, const void* ids,
-           const void* bitmap, int Q, int R, int d, int W, int vec4,
-           void* sims, void* sims_pass, void* stream) {
+           const void* bitmap, int Q, int R, int d, int W, int warps,
+           int span, int smem_bytes, int vec4, void* sims, void* sims_pass,
+           void* stream) {
   if (Q == 0 || R == 0) return 0;
-  const size_t smem = ((static_cast<size_t>(d) + 3) / 4) * sizeof(float4);
-  if (smem > 48 * 1024) {
+  const long long need = (1LL + kSlots * warps) * ((d + 3) / 4) * 16;
+  if (warps < 1 || warps * 32 > kMaxWalkThreads || span < 1 ||
+      smem_bytes < need)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (smem_bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fiber_expand_kernel<kWalk>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        fiber_walk_kernel<kWalk>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const dim3 grid((R + kWarps - 1) / kWarps, Q);
-  fiber_expand_kernel<kWalk><<<grid, kWarps * 32, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((R + span - 1) / span, Q);
+  fiber_walk_kernel<kWalk><<<grid, warps * 32, smem_bytes,
+                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q_vecs), static_cast<const float*>(corpus),
       static_cast<const int*>(ids), static_cast<const unsigned int*>(bitmap),
-      R, d, W, vec4, static_cast<float*>(sims),
+      R, d, W, span, vec4, static_cast<float*>(sims),
       static_cast<float*>(sims_pass));
   return static_cast<int>(cudaGetLastError());
 }
@@ -242,43 +212,26 @@ extern "C" const char* kernel_error_string(int code) {
 // K2. q_vecs (Q, d) f32; corpus (n, d) f32; ids (Q, R) i32 (-1 pad); bitmap
 // (Q, W) i32 words; sims, sims_pass (Q, R) f32. warps (1..4) per block,
 // span neighbour slots per block, smem_bytes >= (1 + 2 * warps) *
-// ceil4(d) * 4 of dynamic shared memory (the wrapper's plan, two row
-// buffers per warp). vec4 != 0
-// promises d % 4 == 0 and 16-byte aligned q_vecs/corpus. Returns
-// cudaGetLastError().
+// ceil4(d) * 4 of dynamic shared memory (the wrapper's walk_plan, two row
+// buffers per warp). vec4 != 0 promises d % 4 == 0 and 16-byte aligned
+// q_vecs/corpus. Returns cudaGetLastError().
 extern "C" int fiber_expand_walk_launch(const void* q_vecs, const void* corpus,
                                         const void* ids, const void* bitmap,
                                         int Q, int R, int d, int W, int warps,
                                         int span, int smem_bytes, int vec4,
                                         void* sims, void* sims_pass,
                                         void* stream) {
-  if (Q == 0 || R == 0) return 0;
-  const long long need = (1LL + kSlots * warps) * ((d + 3) / 4) * 16;
-  if (warps < 1 || warps * 32 > kMaxWalkThreads || span < 1 ||
-      smem_bytes < need)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fiber_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid((R + span - 1) / span, Q);
-  fiber_walk_kernel<<<grid, warps * 32, smem_bytes,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q_vecs), static_cast<const float*>(corpus),
-      static_cast<const int*>(ids), static_cast<const unsigned int*>(bitmap),
-      R, d, W, span, vec4, static_cast<float*>(sims),
-      static_cast<float*>(sims_pass));
-  return static_cast<int>(cudaGetLastError());
+  return launch<true>(q_vecs, corpus, ids, bitmap, Q, R, d, W, warps, span,
+                      smem_bytes, vec4, sims, sims_pass, stream);
 }
 
-// The same arguments as fiber_expand_walk_launch with one output: sims
+// K5. The same arguments as fiber_expand_walk_launch with one output: sims
 // (Q, R) f32, -inf unless the id is >= 0 and its pass bit is set.
 extern "C" int fiber_expand_launch(const void* q_vecs, const void* corpus,
                                    const void* ids, const void* bitmap, int Q,
-                                   int R, int d, int W, int vec4, void* sims,
+                                   int R, int d, int W, int warps, int span,
+                                   int smem_bytes, int vec4, void* sims,
                                    void* stream) {
-  return launch<false>(q_vecs, corpus, ids, bitmap, Q, R, d, W, vec4, nullptr,
-                       sims, stream);
+  return launch<false>(q_vecs, corpus, ids, bitmap, Q, R, d, W, warps, span,
+                       smem_bytes, vec4, nullptr, sims, stream);
 }

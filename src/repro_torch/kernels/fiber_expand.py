@@ -19,11 +19,11 @@ from repro_torch.kernels import build
 # K2: 4 input pointers, (Q, R, d, W, warps, span, smem, vec4), then the
 # outputs and the stream
 _C_ARGS_WALK = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3
-# K5: 4 input pointers, (Q, R, d, W, vec4), the output and the stream
-_C_ARGS_ONE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+# K5: the same with one output
+_C_ARGS_ONE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
 
-# K2 blocks: up to 4 warps, each with two d-float row buffers beside the
-# block's staged query, in the H100's 227 KB of shared memory per block
+# K2 and K5 blocks: up to 4 warps, each with two d-float row buffers beside
+# the block's staged query, in the H100's 227 KB of shared memory per block
 # less the kernel's 1.5 KB of static arrays; at least two blocks per SM
 WALK_WARPS = 4
 WALK_SLOTS = 2   # row buffers per warp (the kernel's kSlots)
@@ -33,7 +33,7 @@ WALK_BLOCKS_PER_SM = 2
 
 def walk_plan(q_n: int, r: int, d: int, n_sm: int) -> tuple[int, int, int]:
     """(warps per block, neighbour slots per block, shared-memory bytes)
-    of the K2 grid (ceil(r / span), q_n). R is split so that the grid
+    of the K2 and K5 grid (ceil(r / span), q_n). R is split so that the grid
     gives every SM ``WALK_BLOCKS_PER_SM`` blocks where R allows (at least
     two slots per warp); raises if d is too large for one warp's two row
     buffers."""
@@ -96,19 +96,21 @@ def fiber_expand(q_vecs: torch.Tensor, corpus: torch.Tensor,
                  ids: torch.Tensor, bitmap: torch.Tensor) -> torch.Tensor:
     """The K5 CUDA kernel: the inputs of ``fiber_expand_walk``; returns
     sims (Q, R) f32, -inf unless the id is >= 0 and its pass bit is set,
-    as ``ref.fiber_expand``. Rows whose bit is 0 are never read."""
+    as ``ref.fiber_expand``. Rows whose bit is 0 are never read, nor is
+    the query of a block none of whose slots pass."""
     what = "fiber_expand"
     device, vec4 = _check(what, q_vecs, corpus, ids, bitmap)
     q_n, d = q_vecs.shape
     R = ids.shape[1]
     sims = torch.empty((q_n, R), dtype=torch.float32, device=device)
+    warps, span, smem = walk_plan(q_n, R, d, build.sm_count(device))
     lib = build.load("fiber_expand")
     fn = lib.fiber_expand_launch
     fn.argtypes = _C_ARGS_ONE
     fn.restype = ctypes.c_int
     rc = fn(build.ptr(q_vecs), build.ptr(corpus), build.ptr(ids),
-            build.ptr(bitmap), q_n, R, d, bitmap.shape[1], vec4,
-            build.ptr(sims), build.stream(device))
+            build.ptr(bitmap), q_n, R, d, bitmap.shape[1], warps, span, smem,
+            vec4, build.ptr(sims), build.stream(device))
     build.check(lib, rc, what)
     build.LAUNCHES[what] += 1
     return sims

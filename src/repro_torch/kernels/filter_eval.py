@@ -29,15 +29,64 @@ from repro_torch.kernels import build
 # densely from 0, so the per-query count is recoverable from the table.
 DEAD_DISJUNCT = -2
 
-_C_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,       # meta, n, F
-           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # tables
-           ctypes.c_void_p,                                    # n_disj
-           ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-           ctypes.c_void_p, ctypes.c_void_p]                   # out, stream
+# K1: meta, n, F, the four table pointers, (Q, D, C, Wv, rows, group,
+# smem), out, stream
+_C_ARGS = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+           + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+           + [ctypes.c_void_p] * 2)
 _C_ARGS_SINGLE = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # meta, n, F
                   ctypes.c_void_p, ctypes.c_void_p,  # fields, allowed
                   ctypes.c_int, ctypes.c_int,        # C, v_cap
                   ctypes.c_void_p, ctypes.c_void_p]  # out, stream
+
+# K1 blocks: 8 warps over a tile of FILTER_ROWS metadata rows (128 or
+# 256: 4 or 8 rows a thread, each warp sweeping its own queries over the
+# whole tile), with two buffers of a chunk of the query group's fields,
+# bounds and live-disjunct counts, about FILTER_TABLE_BYTES each, beside it
+# (one is swept while the next chunk is copied into the other), in at most
+# FILTER_SMEM_LIMIT bytes of shared memory (two blocks fit in an H100 SM's
+# 228 KB); query groups sized so the grid gives each SM
+# FILTER_BLOCKS_PER_SM blocks.
+FILTER_ROWS = 256
+FILTER_TABLE_BYTES = 16 * 1024
+FILTER_SMEM_LIMIT = 113 * 1024
+FILTER_BLOCKS_PER_SM = 16
+
+
+def filter_plan(q_n: int, n: int, F: int, D: int, C: int, Wv: int,
+                n_sm: int) -> tuple[int, int, int]:
+    """(rows per tile, queries per group, shared-memory bytes) of the K1
+    grid (ceil(n / rows), ceil(q_n / group)). A block copies its tile of
+    metadata rows once (row stride ``F | 1``) and sweeps every query of its
+    group over it, so the groups are as few as the target of
+    ``FILTER_BLOCKS_PER_SM`` blocks per SM allows: each tile is read from
+    L2 once per group. The rest of the shared memory holds two chunks of
+    the group's fields, bounds (counted whether given or not) and
+    live-disjunct counts; the allowed words stay in global memory. The
+    tile shrinks from ``FILTER_ROWS`` toward 128 rows to fit; raises where
+    one query's tables and a 128-row tile do not fit."""
+    stride = F | 1
+    per_q = 4 * (D * C * 3 + 1)
+
+    def smem(rows, chunk):  # the tile, then two table buffers
+        return (-(-rows * stride // 4) * 16
+                + 2 * (-(-chunk * per_q // 16) * 16 + 16))
+
+    rows = FILTER_ROWS
+    while rows > 128 and smem(rows, 1) > FILTER_SMEM_LIMIT:
+        rows //= 2
+    if smem(rows, 1) > FILTER_SMEM_LIMIT:
+        raise ValueError(
+            f"filter_eval_batch: one query's tables ({per_q} bytes: D={D}, "
+            f"C={C}, Wv={Wv}) and a {rows}-row tile of F={F} fields do not "
+            f"fit in {FILTER_SMEM_LIMIT} bytes of shared memory")
+    tiles = max(1, -(-n // rows))
+    groups = -(-FILTER_BLOCKS_PER_SM * n_sm // tiles)
+    group = max(1, q_n // groups)
+    chunk = max(1, min(group, FILTER_TABLE_BYTES // per_q))
+    while chunk > 1 and smem(rows, chunk) > FILTER_SMEM_LIMIT:
+        chunk -= 1
+    return rows, group, smem(rows, chunk)
 
 
 def table_n_disj(fields: torch.Tensor) -> torch.Tensor:
@@ -82,13 +131,15 @@ def filter_eval_batch(metadata: torch.Tensor, fields: torch.Tensor,
     build.require_dtype(what, torch.int32, **tensors)
     out = torch.empty((q_n, n_words(n)), dtype=torch.int32,
                       device=device)
+    rows, group, smem = filter_plan(q_n, n, F, D, C, Wv,
+                                    build.sm_count(device))
     lib = build.load("filter_eval")
     fn = lib.filter_eval_batch_launch
     fn.argtypes = _C_ARGS
     fn.restype = ctypes.c_int
     rc = fn(build.ptr(metadata), n, F, build.ptr(fields), build.ptr(allowed),
-            build.ptr(bounds), build.ptr(n_disj), q_n, D, C, Wv,
-            build.ptr(out), build.stream(device))
+            build.ptr(bounds), build.ptr(n_disj), q_n, D, C, Wv, rows, group,
+            smem, build.ptr(out), build.stream(device))
     build.check(lib, rc, what)
     build.LAUNCHES[what] += 1
     return out

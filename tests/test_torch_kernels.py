@@ -13,8 +13,9 @@ tie-free random data, and a tie-heavy row must give the lowest ids first.
 
 The CUDA kernels themselves run only on the card (``chip_smoke.py``);
 here their host-side tiling (``masked_cosine_topk.plan``,
-``fiber_expand.walk_plan``) is checked at the smoke's shapes and ragged
-ones, and K3's 3xTF32 split is emulated in torch to pin its numerics.
+``fiber_expand.walk_plan`` for K2 and K5, ``filter_eval.filter_plan``) is
+checked at the smoke's shapes and ragged ones, and K3's 3xTF32 split is
+emulated in torch to pin its numerics.
 
 ``repro.core`` is imported before ``repro.kernels``: the reference's
 ``kernels/ops.py`` imports ``repro.core``, whose ``device_atlas`` imports
@@ -61,32 +62,64 @@ def _mk(n, d, Q, seed=0):
     return corpus, queries, bitmap
 
 
-def _meta(n, F, seed):
-    # codes -1 (unpopulated) .. 39
-    return np.random.default_rng(seed).integers(-1, 40, (n, F)).astype(
+def _meta(n, F, seed, vocab=40):
+    # codes -1 (unpopulated) .. vocab - 1
+    return np.random.default_rng(seed).integers(-1, vocab, (n, F)).astype(
         np.int32)
 
 
-def _conj_tables(F, seed):
+def _conj_tables(F, seed, q_n=6, v_cap=64, vocab=40):
+    """q_n - 2 random conjunctions of 1-3 clauses over codes below
+    min(vocab, v_cap) (1-3 values a clause, or up to half of them for a
+    wide vocabulary), then an unconstrained and a never() lane."""
     rng = np.random.default_rng(seed)
+    top = min(vocab, v_cap)
+    most = 4 if top <= 64 else top // 2   # values per clause, exclusive
     preds = [FilterPredicate.make(
-        {int(f): rng.integers(0, 40, rng.integers(1, 4)).tolist()
+        {int(f): rng.integers(0, top, rng.integers(1, most)).tolist()
          for f in rng.choice(F, rng.integers(1, 4), replace=False)})
-        for _ in range(4)]
+        for _ in range(q_n - 2)]
     preds.append(FilterPredicate.make({}))      # unconstrained: pad bits 0
     preds.append(FilterPredicate(((0, ()),)))   # never: matches nothing
-    return pack_predicates(preds, max_clauses=4, v_cap=64)
+    return pack_predicates(preds, max_clauses=4, v_cap=v_cap)
 
 
-def _dnf_tables(F):
-    vocab = [40] * F
+def _dnf_tables(F, D=4, v_cap=64, vocab=40):
+    """DNF tables: the fixed expressions (an OR, an interval, a NOT, never,
+    always, an open interval) and, for D = 8, an eight-way OR; codes
+    beyond v_cap (vocab > v_cap) lower to interval clauses."""
+    vocab = [vocab] * F
     exprs = [Or(In(0, [1, 2]), In(3, [5])),
              And(In(1, [3, 4]), Range(2, 5, 20)),
              Or(Range(4, 0, 3), In(5, [39]), Not(In(1, list(range(30))))),
              Or(), And(), Range(0, 38, None)]
-    dnfs = [as_dnf(e, vocab, v_cap=64) for e in exprs]
-    f, a, b, nd = pack_dnf(dnfs, max_disjuncts=4, max_clauses=4, v_cap=64)
+    if D == 8:
+        exprs.append(Or(*(In(i % F, [3 * i, 3 * i + 1, v_cap - 1 - i])
+                          for i in range(8))))
+    dnfs = [as_dnf(e, vocab, v_cap=v_cap) for e in exprs]
+    f, a, b, nd = pack_dnf(dnfs, max_disjuncts=D, max_clauses=4,
+                           v_cap=v_cap)
     return f, a, b, nd, exprs, vocab
+
+
+# K1 shapes across the CUDA kernel's tile and query-group edges (its tile
+# is filter_eval.FILTER_ROWS = 256 rows): n = tile - 1 and tile + 1, F
+# even (the padded shared-memory row stride), Wv = 32 words (v_cap 1024,
+# codes beyond it in the metadata), D = 8, and Q = 265, which the plan
+# for an 8-SM card splits into groups of 4 queries. The first three are
+# the original cases.
+_K1_CASES = [pytest.param(10, 6, 64, 6, 40, id="10"),
+             pytest.param(300, 6, 64, 6, 40, id="300"),
+             pytest.param(1000, 6, 64, 6, 40, id="1000"),
+             pytest.param(255, 27, 1024, 6, 1100, id="tile-1-wv32"),
+             pytest.param(257, 27, 1024, 6, 1100, id="tile+1-wv32"),
+             pytest.param(257, 8, 64, 265, 40, id="tile+1-evenF-q265")]
+_K1_DNF_CASES = [pytest.param(10, 6, 64, 4, 40, id="10"),
+                 pytest.param(300, 6, 64, 4, 40, id="300"),
+                 pytest.param(1000, 6, 64, 4, 40, id="1000"),
+                 pytest.param(255, 27, 1024, 8, 1100, id="tile-1-wv32-d8"),
+                 pytest.param(257, 8, 1024, 8, 1100,
+                              id="tile+1-evenF-wv32-d8")]
 
 
 def _assert_bits_equal(got: torch.Tensor, want) -> None:
@@ -94,25 +127,27 @@ def _assert_bits_equal(got: torch.Tensor, want) -> None:
                                   np.asarray(want))
 
 
-@pytest.mark.parametrize("n", [10, 300, 1000])
-def test_filter_eval_conjunctive_bit_exact(n):
-    F = 6
-    meta = _meta(n, F, n)
-    f_np, a_np = _conj_tables(F, n + 1)
+@pytest.mark.parametrize("n,F,v_cap,q_n,vocab", _K1_CASES)
+def test_filter_eval_conjunctive_bit_exact(n, F, v_cap, q_n, vocab):
+    meta = _meta(n, F, n, vocab)
+    f_np, a_np = _conj_tables(F, n + 1, q_n, v_cap, vocab)
+    if q_n > 6:  # query groups with a ragged last one (an 8-SM card's
+        # plan; the smoke forces such groups on the H100)
+        _, group, _ = filter_eval.filter_plan(q_n, n, F, 1, 4, v_cap // 32, 8)
+        assert 1 < group and q_n % group != 0
     got = tref.filter_eval_batch(_t(meta), _t(f_np), _t(a_np))
     jargs = (jnp.asarray(meta), jnp.asarray(f_np), jnp.asarray(a_np))
     _assert_bits_equal(got, _jref_filter(*jargs))
     _assert_bits_equal(got, pallas_filter(*jargs, tn=64, interpret=True))
 
 
-@pytest.mark.parametrize("n", [10, 300, 1000])
+@pytest.mark.parametrize("n,F,v_cap,D,vocab", _K1_DNF_CASES)
 @pytest.mark.parametrize("with_bounds", [False, True])
-def test_filter_eval_dnf_bit_exact(n, with_bounds):
+def test_filter_eval_dnf_bit_exact(n, F, v_cap, D, vocab, with_bounds):
     """DNF tables (dead-disjunct padding, a never() and an always() lane)
     with and without the interval bounds table."""
-    F = 6
-    meta = _meta(n, F, n + 7)
-    f_np, a_np, b_np, nd, exprs, vocab = _dnf_tables(F)
+    meta = _meta(n, F, n + 7, vocab)
+    f_np, a_np, b_np, nd, exprs, vocab = _dnf_tables(F, D, v_cap, vocab)
     if not with_bounds:  # interval-free rows of the same tables
         b_np = None
     bounds_t = None if b_np is None else _t(b_np)
@@ -399,6 +434,76 @@ def test_fiber_expand_walk_plan(q_n, r, d, want):
 def test_fiber_expand_walk_plan_refuses_huge_rows():
     with pytest.raises(ValueError, match="row buffers"):
         fiber_expand.walk_plan(1, 96, 30_000, 132)
+
+
+@pytest.mark.parametrize("q_n,r,d,want", [
+    (256, 96, 2048, (4, 48, 73_728)),   # the smoke's K5 phase (K2 shapes)
+    (6, 24, 64, (4, 8, 2_304)),         # the parity gate's probes
+    (1, 96, 2048, (4, 8, 73_728)),      # one query: R split 12 ways
+    (5, 33, 130, (4, 7, 4_752)),        # d % 4 != 0 (4-byte copies)
+    (1, 1, 4, (4, 1, 144)),
+])
+def test_fiber_expand_plan(q_n, r, d, want):
+    """K5 launches on K2's plan: the same shared memory (a query staged
+    once per block, two row buffers per warp) and the same R split, so a
+    small Q still spreads over the SMs; every slot belongs to one block."""
+    got = fiber_expand.walk_plan(q_n, r, d, 132)
+    assert got == want
+    warps, span, smem = got
+    blocks = -(-r // span)
+    assert (blocks - 1) * span < r <= blocks * span
+    assert smem == (1 + fiber_expand.WALK_SLOTS * warps) * (-(-d // 4) * 16)
+    # two blocks per SM where R allows, at about two slots per warp
+    assert q_n * blocks >= 2 * 132 or blocks == -(-r // (2 * warps))
+
+
+@pytest.mark.parametrize("q_n,n,F,D,C,Wv,want", [
+    (256, 105_100, 27, 1, 4, 8, (256, 42, 32_064)),    # smoke conj, v_cap 256
+    (256, 105_100, 27, 1, 4, 32, (256, 42, 32_064)),   # smoke conj, v_cap 1024
+    (256, 105_100, 27, 8, 4, 32, (256, 42, 60_288)),   # bench OR, D = 8
+    (64, 105_100, 27, 2, 4, 32, (256, 10, 29_696)),    # search OR, Q = 64
+    (1, 105_100, 27, 1, 4, 32, (256, 1, 27_808)),      # one query
+    (256, 10, 27, 8, 4, 32, (256, 1, 28_480)),         # n < 32
+    (263, 10_000, 8, 1, 4, 2, (256, 4, 9_664)),        # even F, ragged group
+])
+def test_filter_eval_batch_plan(q_n, n, F, D, C, Wv, want):
+    """K1's grid: tiles of 128 or 256 rows, a row stride padded to odd,
+    query groups no smaller than the target of FILTER_BLOCKS_PER_SM blocks
+    per SM needs (each tile is read from L2 once per group), and two
+    buffers of at least one query's fields, bounds and live-disjunct count
+    beside the tile within the shared-memory limit."""
+    got = filter_eval.filter_plan(q_n, n, F, D, C, Wv, 132)
+    assert got == want
+    rows, group, smem = got
+    tiles = -(-n // rows)
+    groups = -(-q_n // group)
+    target = filter_eval.FILTER_BLOCKS_PER_SM * 132
+    assert rows in (128, 256)
+    assert (groups - 1) * group < q_n <= groups * group
+    per_q = 4 * (D * C * 3 + 1)
+    assert rows * (F | 1) * 4 + 2 * per_q <= smem
+    assert smem <= filter_eval.FILTER_SMEM_LIMIT
+    if tiles * q_n >= target:
+        assert tiles * groups >= target
+    # no more groups than the target needs, rounded down to whole queries
+    assert groups <= max(1, 2 * -(-target // tiles))
+
+
+@pytest.mark.parametrize("rows,F,want", [(256, 60, 256), (256, 120, 128),
+                                         (128, 27, 128)])
+def test_filter_eval_batch_plan_shrinks_tiles(monkeypatch, rows, F, want):
+    """A tile wider than the shared-memory limit allows halves toward 128
+    rows."""
+    monkeypatch.setattr(filter_eval, "FILTER_ROWS", rows)
+    got, _, smem = filter_eval.filter_plan(256, 105_100, F, 1, 4, 32, 132)
+    assert got == want and smem <= filter_eval.FILTER_SMEM_LIMIT
+
+
+def test_filter_eval_batch_plan_refuses_huge_tables():
+    with pytest.raises(ValueError, match="do not fit"):
+        filter_eval.filter_plan(256, 105_100, 27, 128, 64, 32, 132)
+    with pytest.raises(ValueError, match="do not fit"):
+        filter_eval.filter_plan(1, 1000, 300, 1, 4, 8, 132)
 
 
 def test_top_k_matches_lax_top_k_on_ties():

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""K2 and K3 alone on the card: each kernel against its plain version, then
-timed beside the plain version and one PyTorch call for the same function.
+"""K1-K3 and K5 alone on the card: each kernel against its plain version,
+then timed beside the plain version and, where there is one, one PyTorch
+call for the same function.
 
     python3 tools/torch_kernel_bench.py [--src DIR] [--reps N] [--check-only]
         [--sweep] [--out PATH]
@@ -10,62 +11,59 @@ seeds at the smoke's widths, with no index build: a 105,100 x 2048 corpus
 of unit rows; Q=256 unit queries; for K3 a k=32 mask that passes a random
 half of the corpus, and k=10 masks that pass one of 324 random clusters
 per query at Q=256 and Q=64 (the search path's one-cluster seed masks:
-sqrt(n) clusters of ~324 rows); for K2 walk hops at Q=64 and Q=256 with R=96 neighbour slots
-of which 41% hold a valid id (the smoke's 10,139 of 24,576) and pass
-bitmaps that pass 7% of the rows. Ragged shapes (n % 32 != 0, d % 4 != 0,
-Q below the kernels' tiles) are checked too. Checks are the smoke's: K2
-identical -inf positions and rtol = atol = 1e-5; K3 identical fill, sims
+sqrt(n) clusters of ~324 rows); for K2 walk hops at Q=64 and Q=256 with
+R=96 neighbour slots of which 41% hold a valid id (the smoke's 10,139 of
+24,576) and pass bitmaps that pass 7% of the rows; K5 on the Q=256 hop
+(about 700 passing ids, 2.8% of the slots, as the smoke's 696); for K1 a
+105,100 x 27 int32 metadata with the smoke's vocabulary sizes (3% of
+entries -1) and Q=256 clause tables with v_cap 1024: conjunctive (1-4
+clauses over the 24 categorical fields), OR with D = 8 (2-8 live
+disjuncts) and range (half the clauses intervals). Before the timed
+cases, ``chip_smoke.ragged_checks`` holds every kernel to its plain
+version at ragged shapes (n % 32 != 0, d % 4 != 0, Q below and across
+the tiles, K1's tile and group edges). Checks are the smoke's: K1
+bit-exact; K2 identical -inf positions and rtol = atol = 1e-5; K5
+identical -inf positions and sims within 1e-4; K3 identical fill, sims
 within 1e-4, an id that differs from the plain version's must pass its
 mask and score its sim, no duplicates.
 
 ``--src`` picks the package to load (``src`` of this checkout by default;
 point it at another checkout's ``src`` to time that version's kernels in
-the same call). Each function is timed twice, in turns (kernel, library,
-plain, kernel, library); a time is the lower of its medians of CUDA-event
-timed runs with the L2 cache flushed before each, each run queued behind
-a spin kernel so that the host's enqueue time does not count. Prints one
-JSON line per case, the card's name and power limit, and exits non-zero
-on any failed check. Each record also gives the wrapper's host time per
-call while the card is busy (``host_ms``: a call that waits for the card
-shows as milliseconds), and K2's a streaming read (``sum``) of as many
-contiguous corpus rows as the call gathers. ``--sweep`` also
-times K3 at fixed chunk sizes and K2 at other blocks-per-SM targets (the
-wrappers' tiling constants).
+the same call; the ragged checks run only for a version with K1's
+``filter_plan``). Each function is timed in turns (kernel, library,
+plain, kernel, library; K1 has no library call); a time is the lower of
+its medians of CUDA-event timed runs with the L2 cache flushed before
+each, each run queued behind a spin kernel so that the host's enqueue
+time does not count. Prints one JSON line per case, the card's name and
+power limit, and exits non-zero on any failed check. Each record also
+gives the wrapper's host time per call while the card is busy
+(``host_ms``: a call that waits for the card shows as milliseconds), and
+K2's a streaming read (``sum``) of as many contiguous corpus rows as the
+call gathers; K1's conjunctive case also times the call with every clause
+inactive (its cost without a single clause test), and a ``floor`` record
+gives what the timing reads for an empty kernel. ``--sweep`` also times
+K1 at other tile rows and blocks-per-SM targets (which set its query
+groups), K3 at fixed chunk sizes and K2 and K5 at other blocks-per-SM
+targets (the wrappers' tiling constants).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-TF32_FLOP_PER_S = 495e12
+sys.path.insert(0, ROOT)
+import chip_smoke as smoke  # noqa: E402  (stdlib imports only at the top)
 
-
-def cuda_ms(fn, reps, flush):
-    """Median device time of ``fn``: each run is queued behind a ~1 ms spin
-    kernel and an L2 flush, so the events time the card, not the host."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        torch.cuda._sleep(2_000_000)
-        flush.zero_()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+# the smoke's field vocabularies: 24 categorical fields of
+# make_dataset(SynthSpec(n_fields=24, seed=0)), the two OR fields and the
+# 2^20-code timestamp field
+VOCAB = (4, 64, 32, 2, 16, 16, 32, 128, 2, 4, 8, 8, 32, 64, 16, 16, 200, 32,
+         8, 64, 128, 200, 64, 2, 3, 3, 1 << 20)
 
 
 def host_ms(fn, reps):
@@ -84,45 +82,37 @@ def host_ms(fn, reps):
     return dt / reps * 1e3
 
 
-def check_k2(got, want, what):
-    import torch
-    for g, w in zip(got, want):
-        if not torch.equal(torch.isneginf(g), torch.isneginf(w)):
-            raise SystemExit(f"{what}: -inf positions differ")
-        if not torch.allclose(g, w, rtol=1e-5, atol=1e-5):
-            raise SystemExit(f"{what}: kernel != plain at rtol=atol=1e-5")
-    fin = torch.isfinite(want[0])
-    return float((got[0][fin] - want[0][fin]).abs().max()) if fin.any() else 0.
-
-
-def check_k3(got, want, queries, corpus, mask, what):
-    import torch
-    (s_k, i_k), (s_p, i_p) = got, want
-    fin = torch.isfinite(s_p)
-    if not torch.equal(torch.isfinite(s_k), fin):
-        raise SystemExit(f"{what}: fill differs")
-    if not torch.allclose(s_k[fin], s_p[fin], rtol=1e-4, atol=1e-4):
-        raise SystemExit(f"{what}: sims differ beyond 1e-4")
-    diff = (i_k != i_p) & fin
-    if diff.any():
-        qi, _ = torch.nonzero(diff, as_tuple=True)
-        kid = i_k[diff].long()
-        if not bool(mask[qi, kid].all()):
-            raise SystemExit(f"{what}: id fails mask")
-        true = (corpus[kid] * queries[qi]).sum(1)
-        if not torch.allclose(true, s_k[diff], rtol=1e-4, atol=1e-4):
-            raise SystemExit(f"{what}: id does not score its sim")
-    srt = i_k.sort(dim=1).values
-    if bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any()):
-        raise SystemExit(f"{what}: duplicate ids")
-    err = float((s_k[fin] - s_p[fin]).abs().max()) if fin.any() else 0.
-    return err, int(diff.sum())
-
-
 def unit(shape, gen, dev):
     import torch
     x = torch.randn(shape, generator=gen, device=dev)
     return x / x.norm(dim=1, keepdim=True)
+
+
+def timed(rec, fns, reps, flush, order=("ms", "library_ms", "plain_ms", "ms",
+                                         "library_ms")):
+    """Time ``fns`` in turns (``order``); each key's time is the lower of
+    its medians, its runs kept beside it."""
+    for key in order:
+        if key in fns:
+            rec.setdefault(key + "_runs", []).append(
+                smoke.cuda_ms(fns[key], reps, flush))
+    rec.update({key: min(rec[key + "_runs"]) for key in fns})
+
+
+def k1_cases(n, gen, dev):
+    """The K1 forms at Q=256 over an (n, 27) metadata with the smoke's
+    vocabularies: {form: (fields, allowed, n_disj, bounds)}."""
+    conj = smoke.k1_tables(256, 1, 4, VOCAB, 1024, gen, dev,
+                           fields_from=range(24))
+    return {
+        "conj": (conj[0][:, 0].contiguous(), conj[1][:, 0].contiguous(),
+                 None, None),
+        "or_d8": smoke.k1_tables(256, 8, 4, VOCAB, 1024, gen, dev,
+                                 fields_from=range(26), p_value=0.1,
+                                 min_live=2)[:3] + (None,),
+        "range": smoke.k1_tables(256, 1, 4, VOCAB, 1024, gen, dev,
+                                 intervals=True),
+    }
 
 
 def main() -> int:
@@ -138,9 +128,10 @@ def main() -> int:
         print("torch_kernel_bench: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(args.src))
-    from repro_torch.core.batched.bitmap import pack_bits
+    from repro_torch.core.batched.bitmap import pack_bits, popcount
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import fiber_expand as fe
+    from repro_torch.kernels import filter_eval as fv
     from repro_torch.kernels import masked_cosine_topk as mct
 
     card = subprocess.run(
@@ -149,41 +140,74 @@ def main() -> int:
         timeout=60).stdout.strip()
     out = []
 
-    def log(**kw):
-        rec = {"src": args.src, **kw}
+    def log(case, **kw):
+        rec = {"src": args.src, "case": case, **kw}
         out.append(rec)
         print(json.dumps(rec), flush=True)
 
-    for name in ("fiber_expand", "masked_cosine_topk"):
+    for name in build.KERNELS:
         build.load(name)
         if hasattr(build, "ptxas_report"):
-            log(case=f"ptxas/{name}", ptxas=build.ptxas_report(name))
+            log(f"ptxas/{name}", ptxas=build.ptxas_report(name))
     dev = torch.device("cuda", 0)
     gen = torch.Generator(dev).manual_seed(0)
 
+    # what the timing method reads for an empty kernel
+    flush = torch.empty(64 << 20, dtype=torch.int8, device=dev)
+    if not args.check_only:
+        log("floor", empty_kernel_ms=smoke.cuda_ms(
+            lambda: torch.cuda._sleep(1), args.reps, flush))
+
     # ragged shapes first: a fault shows before the timed cases
-    for n, d, q_n, k, r in ((1000, 37, 70, 7, 5), (800, 64, 6, 16, 24),
-                            (4133, 132, 130, 32, 50)):
-        corpus = unit((n, d), gen, dev)
-        queries = unit((q_n, d), gen, dev)
-        mask = torch.rand(q_n, n, device=dev, generator=gen) < 0.3
-        bm = pack_bits(mask)
-        err, mism = check_k3(mct.masked_cosine_topk(queries, corpus, bm, k),
-                             ref.masked_cosine_topk(queries, corpus, bm, k),
-                             queries, corpus, mask, f"K3 ragged n={n} d={d}")
-        ids = torch.randint(-1, n, (q_n, r), device=dev, generator=gen,
-                            dtype=torch.int32)
-        e2 = check_k2(fe.fiber_expand_walk(queries, corpus, ids, bm),
-                      ref.fiber_expand_walk(queries, corpus, ids, bm),
-                      f"K2 ragged n={n} d={d}")
-        torch.cuda.synchronize()
-        log(case="ragged", n=n, d=d, Q=q_n, k=k, R=r, k3_max_abs_err=err,
-            k3_id_mismatches=mism, k2_max_abs_err=e2, ok=True)
+    if hasattr(fv, "filter_plan"):
+        smoke.ragged_checks(dev, log)
+    else:
+        log("ragged", skipped="this version has no filter_plan")
 
     n, d, n_clusters, R = 105_100, 2048, 324, 96
+
+    # K1: the three forms at Q=256, bit-exact, then timed
+    meta = smoke.k1_meta(n, VOCAB, gen, dev)
+    k1 = k1_cases(n, gen, dev)
+    for form, (fields, allowed, nd, bounds) in k1.items():
+        got = fv.filter_eval_batch(meta, fields, allowed, nd, bounds)
+        want = ref.filter_eval_batch(meta, fields, allowed, nd, bounds)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise SystemExit(f"K1 {form}: kernel != plain")
+        active = int((fields >= 0).sum())
+        rec = dict(Q=256, n=n, F=meta.shape[1], table_shape=list(
+            fields.shape), active_clauses=active,
+            pass_bits=int(popcount(got).sum()), ok=True)
+        if hasattr(fv, "filter_plan"):
+            rec["plan"] = fv.filter_plan(
+                256, n, meta.shape[1], fields.shape[1] if fields.ndim == 3
+                else 1, fields.shape[-1], allowed.shape[-1],
+                build.sm_count(dev))
+        if not args.check_only:
+            n_bytes = (meta.numel() + got.numel() + sum(
+                t.numel() for t in (fields, allowed, nd, bounds)
+                if t is not None)) * 4
+            b_ms, b_by = smoke.bound(n_bytes, 4.0 * n * active)
+            timed(rec, {
+                "ms": lambda: fv.filter_eval_batch(meta, fields, allowed, nd,
+                                                   bounds),
+                "plain_ms": lambda: ref.filter_eval_batch(
+                    meta, fields, allowed, nd, bounds)},
+                args.reps, flush, order=("ms", "plain_ms", "ms"))
+            rec.update(host_ms=host_ms(lambda: fv.filter_eval_batch(
+                meta, fields, allowed, nd, bounds), 20), bound_ms=b_ms,
+                bound_by=b_by, share_of_bound=b_ms / rec["ms"])
+            if form == "conj":  # the same call with every clause inactive:
+                # what the sweep costs without a single clause test
+                none = torch.full_like(fields, -1)
+                rec["no_clause_ms"] = smoke.cuda_ms(
+                    lambda: fv.filter_eval_batch(meta, none, allowed),
+                    args.reps, flush)
+        log(f"K1/{form}", **rec)
+
     corpus = unit((n, d), gen, dev)
     queries = unit((256, d), gen, dev)
-    flush = torch.empty(64 << 20, dtype=torch.int8, device=dev)
     assign = torch.randint(0, n_clusters, (n,), device=dev, generator=gen)
     pick = torch.randint(0, n_clusters, (256,), device=dev, generator=gen)
     masks = {"one_cluster_k10": (assign[None, :] == pick[:, None], 10),
@@ -195,12 +219,12 @@ def main() -> int:
     for label, q_n, mask, k in k3_cases:
         queries_q = queries[:q_n]
         bm = pack_bits(mask)
-        err, mism = check_k3(
-            mct.masked_cosine_topk(queries_q, corpus, bm, k),
-            ref.masked_cosine_topk(queries_q, corpus, bm, k), queries_q,
-            corpus, mask, f"K3 {label}")
-        rec = dict(case=f"K3/{label}", Q=q_n, n=n, d=d, k=k,
-                   max_abs_err=err, id_mismatches=mism, ok=True)
+        err, mism = smoke.check_topk(
+            f"K3 {label}", mct.masked_cosine_topk(queries_q, corpus, bm, k),
+            ref.masked_cosine_topk(queries_q, corpus, bm, k), mask,
+            queries_q, corpus)
+        rec = dict(Q=q_n, n=n, d=d, k=k, max_abs_err=err, id_mismatches=mism,
+                   ok=True)
         if not args.check_only:
             rows_any = int(mask.any(dim=0).sum())
             set_bits = int(mask.sum())
@@ -214,17 +238,15 @@ def main() -> int:
                                                            bm, k),
                 "library_ms": lambda: torch.topk(torch.where(
                     mask, queries_q @ corpus.T, float("-inf")), k)}
-            for key in ("ms", "library_ms", "plain_ms", "ms", "library_ms"):
-                rec.setdefault(key + "_runs", []).append(
-                    cuda_ms(fns[key], args.reps, flush))
-            rec.update({key: min(rec[key + "_runs"]) for key in fns})
+            timed(rec, fns, args.reps, flush)
             rec.update(
                 host_ms=host_ms(fns["ms"], 10),
-                bytes_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
-                fp32_ops_ms=ops / FP32_FLOP_PER_S * 1e3,
-                tf32x3_ops_ms=3 * ops / TF32_FLOP_PER_S * 1e3,
+                bytes_ms=smoke.bound(n_bytes, 0)[0],
+                fp32_ops_ms=smoke.bound(0, ops)[0],
+                tf32x3_ops_ms=smoke.bound(0, 3 * ops,
+                                          smoke.TF32_FLOP_PER_S)[0],
                 rows_any=rows_any, set_bits=set_bits)
-        log(**rec)
+        log(f"K3/{label}", **rec)
 
     pass_bm = pack_bits(torch.rand(256, n, device=dev, generator=gen) < 0.07)
     for q_n in (64, 256):
@@ -233,45 +255,85 @@ def main() -> int:
         pad = torch.rand(q_n, R, device=dev, generator=gen) > 10_139 / 24_576
         ids = torch.where(pad, -1, ids).contiguous()
         q, bm = queries[:q_n].contiguous(), pass_bm[:q_n].contiguous()
-        err = check_k2(fe.fiber_expand_walk(q, corpus, ids, bm),
-                       ref.fiber_expand_walk(q, corpus, ids, bm),
-                       f"K2 Q={q_n}")
-        rec = dict(case=f"K2/Q{q_n}", Q=q_n, R=R, d=d, max_abs_err=err,
-                   ok=True)
+        err = smoke.check_walk(f"K2 Q={q_n}",
+                               fe.fiber_expand_walk(q, corpus, ids, bm),
+                               ref.fiber_expand_walk(q, corpus, ids, bm))
+        rec = dict(Q=q_n, R=R, d=d, max_abs_err=err, ok=True)
+        n_valid = int((ids >= 0).sum())
+        safe = ids.clamp(min=0).long().flatten()
         if not args.check_only:
-            n_valid = int((ids >= 0).sum())
             n_rows = int(torch.unique(ids[ids >= 0]).numel())
             n_bytes = (q.numel() + n_rows * d + ids.numel() + n_valid
                        + 2 * ids.numel()) * 4
-            safe = ids.clamp(min=0).long().flatten()
             fns = {
                 "ms": lambda: fe.fiber_expand_walk(q, corpus, ids, bm),
                 "plain_ms": lambda: ref.fiber_expand_walk(q, corpus, ids, bm),
                 "library_ms": lambda: torch.bmm(
                     corpus.index_select(0, safe).view(q_n, R, d),
                     q.unsqueeze(2))}
-            for key in ("ms", "library_ms", "plain_ms", "ms", "library_ms"):
-                rec.setdefault(key + "_runs", []).append(
-                    cuda_ms(fns[key], args.reps * 5, flush))
-            rec.update({key: min(rec[key + "_runs"]) for key in fns})
+            timed(rec, fns, args.reps * 5, flush)
             # a streaming read of as many contiguous rows as the call
             # gathers: what the card's memory gives this many bytes
             stream = corpus[:n_valid]
             rec.update(host_ms=host_ms(fns["ms"], 50),
-                       bytes_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
-                       stream_read_ms=cuda_ms(lambda: stream.sum(),
-                                              args.reps * 5, flush),
+                       bytes_ms=smoke.bound(n_bytes, 0)[0],
+                       stream_read_ms=smoke.cuda_ms(lambda: stream.sum(),
+                                                    args.reps * 5, flush),
                        valid_ids=n_valid, distinct_rows=n_rows)
-        log(**rec)
+        log(f"K2/Q{q_n}", **rec)
+
+    # K5 on the Q=256 hop: a row is read only where its pass bit is set
+    want = ref.fiber_expand(q, corpus, ids, bm)
+    err = smoke.check_expand("K5", fe.fiber_expand(q, corpus, ids, bm), want)
+    fin = torch.isfinite(want)
+    rec = dict(Q=256, R=R, d=d, max_abs_err=err, valid_ids=n_valid,
+               passing_ids=int(fin.sum()), ok=True)
+    if not args.check_only:
+        pass_rows = int(torch.unique(ids[fin]).numel())
+        n_bytes = (q.numel() + 2 * ids.numel() + n_valid
+                   + pass_rows * d) * 4
+        b_ms, b_by = smoke.bound(n_bytes, 2.0 * d * int(fin.sum()))
+
+        def k5_library():
+            sims = torch.bmm(corpus.index_select(0, safe).view(256, R, d),
+                             q.unsqueeze(2)).squeeze(2)
+            return torch.where(fin, sims, float("-inf"))
+
+        fns = {"ms": lambda: fe.fiber_expand(q, corpus, ids, bm),
+               "plain_ms": lambda: ref.fiber_expand(q, corpus, ids, bm),
+               "library_ms": k5_library}
+        timed(rec, fns, args.reps * 5, flush)
+        rec.update(host_ms=host_ms(fns["ms"], 50), bound_ms=b_ms,
+                   bound_by=b_by, share_of_bound=b_ms / rec["ms"],
+                   distinct_passing_rows=pass_rows)
+    log("K5/Q256", **rec)
+
     if args.sweep:
+        if hasattr(fv, "filter_plan"):
+            base = fv.FILTER_ROWS, fv.FILTER_BLOCKS_PER_SM
+            for rows in (128, 256):
+                for bps in (1, 2, 4, 8, 16):
+                    fv.FILTER_ROWS, fv.FILTER_BLOCKS_PER_SM = rows, bps
+                    log("sweep/K1", rows=rows, blocks_per_sm=bps, plan=[
+                        fv.filter_plan(256, n, meta.shape[1], t[0].shape[1]
+                                       if t[0].ndim == 3 else 1,
+                                       t[0].shape[-1], t[1].shape[-1],
+                                       build.sm_count(dev))
+                        for t in k1.values()], **{
+                            form: smoke.cuda_ms(
+                                lambda: fv.filter_eval_batch(meta, *t),
+                                args.reps, flush)
+                            for form, t in k1.items()})
+            fv.FILTER_ROWS, fv.FILTER_BLOCKS_PER_SM = base
         k3_cases = [(label, pack_bits(mask), k)
                     for label, (mask, k) in masks.items()]
         for cw in (16, 32, 48, 64):
             mct.CHUNK_WORDS = (cw, cw)
-            log(case="sweep/K3", chunk_words=cw, **{
-                label: cuda_ms(lambda: mct.masked_cosine_topk(
+            log("sweep/K3", chunk_words=cw, **{
+                label: smoke.cuda_ms(lambda: mct.masked_cosine_topk(
                     queries, corpus, bm, k), args.reps, flush)
                 for label, bm, k in k3_cases})
+        base_k2 = fe.WALK_BLOCKS_PER_SM
         for bps in (1, 2, 4, 8):
             fe.WALK_BLOCKS_PER_SM = bps
             times = {}
@@ -282,9 +344,13 @@ def main() -> int:
                                  generator=gen) > 10_139 / 24_576
                 ids = torch.where(pad, -1, ids).contiguous()
                 q, bm = queries[:q_n].contiguous(), pass_bm[:q_n].contiguous()
-                times[f"Q{q_n}"] = cuda_ms(lambda: fe.fiber_expand_walk(
-                    q, corpus, ids, bm), args.reps * 5, flush)
-            log(case="sweep/K2", blocks_per_sm=bps, **times)
+                times[f"K2_Q{q_n}"] = smoke.cuda_ms(
+                    lambda: fe.fiber_expand_walk(q, corpus, ids, bm),
+                    args.reps * 5, flush)
+            times["K5_Q256"] = smoke.cuda_ms(lambda: fe.fiber_expand(
+                q, corpus, ids, bm), args.reps * 5, flush)
+            log("sweep/K2_K5", blocks_per_sm=bps, **times)
+        fe.WALK_BLOCKS_PER_SM = base_k2
     print(card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
