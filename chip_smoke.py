@@ -11,10 +11,11 @@ out for ingest), holds each of the five kernels against its plain PyTorch
 version on the card at the shapes its path gives it (K2 at the search's
 Q=64 and at Q=256; K3 on one-cluster masks at k=10 and on a random half
 mask at k=32) and also at ragged shapes (K1 in its three forms across its
-tile and query-group edges; K2, K3 and K5 at n % 32 != 0 and d % 4 != 0;
-K5 with no valid id, no pass bit and every pass bit), and then drives three
-paths, each with the launch counts cleared just before it and read just
-after:
+tile and query-group edges; K4 across its words and grid, at odd and even
+F, v_cap 32 to 1024 and with every clause inactive; K2, K3 and K5 at
+n % 32 != 0 and d % 4 != 0; K5 with no valid id, no pass bit and every
+pass bit), and then drives four paths, each with the launch counts cleared
+just before it and read just after:
 
 * the kernel/plain-version parity gate (``kernels.parity.parity_gate``),
   the path of K4 ``filter_eval`` and K5 ``fiber_expand``;
@@ -27,7 +28,14 @@ after:
   maintenance loop drains the backlog, a batch of rows is deleted, and
   every inserted row must be findable, no deleted or unwritten row may
   come back, and the post-churn ids must agree with the same state
-  searched on the host.
+  searched on the host;
+* the sharded engine in reference mode (``ShardedEngine(device="cuda")``,
+  four row shards of the same corpus on the one card, capacity for the
+  held-out rows): the conjunctive Q=64, OR and range batches, checked as
+  above and against the same index searched on the host, then 256
+  held-out rows ingested and 128 rows deleted (every inserted survivor
+  findable, no deleted row returned), then the port's two sharded smokes
+  (``insert._smoke``, ``lifecycle._smoke``) on the card.
 
 Prints the kernels' timings as one JSON line (each record with its
 share of its bound and its time against one PyTorch call, both from this
@@ -61,6 +69,9 @@ N_PAPER = 105_100   # H&M corpus rows (paper size)
 N_INSERT = 64 + 256 + 1024   # held-out rows, ingested in these batches
 INSERT_BATCHES = (64, 256, 1024)
 N_DELETE = 256      # rows the live-index phase deletes
+N_SHARDS = 4        # the sharded path's row shards, all on the one card
+SHARD_INSERT = 256  # held-out rows the sharded path ingests
+SHARD_DELETE = 128  # rows it deletes (half of them inserted ones)
 D = 2048
 N_FIELDS = 24
 K = 10              # results per query
@@ -116,6 +127,33 @@ def bound(n_bytes: float, n_ops: float,
     t_b = n_bytes / HBM_BYTES_PER_S * 1e3
     t_o = n_ops / ops_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def k4_bytes(meta, fields, allowed) -> tuple[int, int]:
+    """What K4 must move on this input, and the whole metadata's figure
+    beside it. A row's later clause is needed only while the row passes
+    every clause before it (the plain version's order), so it needs the
+    first active clause's column for every row and a later column for the
+    rows still passing, counted as the distinct 32-byte sectors they lie
+    in; plus the tables read once and the words written once."""
+    import torch
+    n, F = meta.shape
+    C, v_cap = allowed.shape
+    tables = fields.numel() * 4 + allowed.numel() + (n + 31) // 32 * 4
+    live = torch.ones(n, dtype=torch.bool, device=meta.device)
+    sectors = []
+    for c in range(C):
+        f = int(fields[c])
+        if f < 0:
+            continue
+        rows = torch.nonzero(live).squeeze(1)
+        sectors.append((rows * F + f) * 4 // 32)
+        code = meta[:, f].long()
+        live &= ((code >= 0) & (code < v_cap)
+                 & (allowed[c, code.clamp(0, v_cap - 1)] != 0))
+    need = (int(torch.unique(torch.cat(sectors)).numel()) * 32
+            if sectors else 0)
+    return need + tables, meta.numel() * 4 + tables
 
 
 def ratios(rec: dict) -> dict:
@@ -289,18 +327,74 @@ def ragged_k1(dev, log) -> None:
             pass_bits=int(popcount(got).sum()))
 
 
+def k4_tables(C, n_active, vocab, v_cap, gen, dev, *, fields_from=None,
+              p_value=0.3):
+    """A random K4 table on the card: fields (C,) int32 with ``n_active``
+    distinct fields of ``fields_from`` (default all) at random positions
+    and -1 elsewhere; allowed (C, v_cap) uint8, each code below
+    min(vocab, v_cap) of an active clause allowed with probability
+    ``p_value``."""
+    import torch
+    pool = torch.as_tensor(fields_from if fields_from is not None
+                           else range(len(vocab)), device=dev)
+    pick = pool[torch.randperm(pool.numel(), device=dev,
+                               generator=gen)[:n_active]]
+    fields = torch.full((C,), -1, dtype=torch.int32, device=dev)
+    pos = torch.randperm(C, device=dev, generator=gen)[:n_active]
+    fields[pos] = pick.to(torch.int32)
+    top = torch.as_tensor(vocab, device=dev)[fields.clamp(min=0).long()]
+    allowed = ((torch.rand(C, v_cap, device=dev, generator=gen) < p_value)
+               & (torch.arange(v_cap, device=dev) < top[:, None])
+               & (fields >= 0)[:, None])
+    return fields, allowed.to(torch.uint8).contiguous()
+
+
+def ragged_k4(dev, log) -> None:
+    """K4 bit-exact against its plain version: n % 32 != 0, n below one
+    word and n with several words a warp (its grid is capped), odd and
+    even F, F = 1, every clause inactive (every row passes, pad bits 0),
+    inactive clauses between active ones, metadata codes -1 and >= v_cap,
+    and v_cap 32 to 1024, one not a multiple of 32."""
+    import torch
+    from repro_torch.core.batched.bitmap import popcount
+    from repro_torch.kernels import filter_eval, ref
+    gen = torch.Generator(dev).manual_seed(5)
+    # n, F, C, v_cap, active clauses
+    cases = ((31, 8, 4, 64, 2), (1000, 27, 4, 256, 3),
+             (4133, 26, 4, 1024, 4), (5000, 1, 1, 32, 1),
+             (77_777, 5, 2, 1024, 2), (100_003, 12, 4, 100, 0),
+             (1_200_001, 7, 4, 256, 3))
+    for n, F, C, v_cap, n_act in cases:
+        # codes up to v_cap + 99: some at or beyond v_cap
+        vocab = [v_cap + 100] * F
+        meta = k1_meta(n, vocab, gen, dev)
+        fields, allowed = k4_tables(C, n_act, vocab, v_cap, gen, dev,
+                                    p_value=0.6)
+        got = filter_eval.filter_eval(meta, fields, allowed)
+        want = ref.filter_eval(meta, fields, allowed)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"K4 n={n} F={F} C={C} v_cap={v_cap}: kernel != plain")
+        passing = int(popcount(got))
+        if n_act == 0:
+            check(passing == n, f"K4 n={n}: every row must pass, pad bits 0")
+        log("ragged_k4", n=n, F=F, C=C, v_cap=v_cap, active=n_act,
+            pass_bits=passing)
+
+
 def ragged_checks(dev, log) -> None:
-    """K1-K3 and K5 against their plain versions off the path's shapes:
-    K1 as ``ragged_k1`` says; for the rest n % 32 != 0, d % 4 != 0 (the
-    kernels' 4-byte copy path), Q below and across the query tile, masks
-    from sparse to dense, a corpus of 37 rows repeated (exact ties, which
-    must come out lowest id first), and K5 with every id -1, with no pass
-    bit set and with every pass bit set."""
+    """Every kernel against its plain version off the path's shapes:
+    K1 as ``ragged_k1`` says, K4 as ``ragged_k4`` says; for the rest
+    n % 32 != 0, d % 4 != 0 (the kernels' 4-byte copy path), Q below and
+    across the query tile, masks from sparse to dense, a corpus of 37 rows
+    repeated (exact ties, which must come out lowest id first), and K5
+    with every id -1, with no pass bit set and with every pass bit set."""
     import torch
     from repro_torch.core.batched.bitmap import pack_bits
     from repro_torch.kernels import fiber_expand, ref
     from repro_torch.kernels import masked_cosine_topk as mct
     ragged_k1(dev, log)
+    ragged_k4(dev, log)
     gen = torch.Generator(dev).manual_seed(3)
     cases = ((1000, 37, 70, 7, 5, 0.3, None),
              (4133, 132, 130, 32, 50, 0.004, None),
@@ -574,7 +668,7 @@ def kernel_phases(ds, index, batches, dev, flush, log):
     torch.cuda.synchronize()
     check(torch.equal(got, want), "K4: kernel != plain (bits differ)")
     active = int((fields1 >= 0).sum())
-    n_bytes = meta.numel() * 4 + f_np.nbytes + a_np.nbytes + W * 4
+    n_bytes, full_bytes = k4_bytes(meta, fields1, allowed1)
     b_ms, b_by = bound(n_bytes, 4.0 * meta.shape[0] * active)
     records["filter_eval"] = ratios(dict(
         name="filter_eval", route="cuda", ok=True,
@@ -585,7 +679,9 @@ def kernel_phases(ds, index, batches, dev, flush, log):
                    50, flush),
         plain_ms=cuda_ms(lambda: ref.filter_eval(meta, fields1, allowed1),
                          10, flush),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        needed_mb=n_bytes / 1e6,
+        metadata_bound_ms=bound(full_bytes, 0)[0]))
     log("K4", active_clauses=active, pass_rows=int(popcount(got)),
         **records["filter_eval"])
 
@@ -708,7 +804,7 @@ def main_path(ds, index, batches, dev, card, log, profile_into=None):
         gt, masks = gts[name]
         check_results(name, ids, masks)
         rec = float(np.mean([recall_at_k(r, g) for r, g in zip(ids, gt)]))
-        results[name] = dict(ids=ids, stats=stats)
+        results[name] = dict(ids=ids, stats=stats, ms=ms, recall=rec)
         log("search", batch=name, Q=len(qs), ms_per_batch=ms,
             qps=len(qs) / ms * 1e3, recall_at_10=rec,
             mean_walks=float(stats["walks"].mean()),
@@ -748,14 +844,12 @@ def host_comparison(index, ds, batches, card_res, log):
     for name in ("conj_q64", "or_q64"):
         t = time.time()
         ids, _ = eng.search(batches[name])
-        overlap, exact = [], 0
-        for a, b in zip(card_res[name]["ids"], ids):
-            overlap.append(1.0 if a.size == b.size == 0 else
-                           np.intersect1d(a, b).size / max(a.size, b.size))
-            exact += int(np.array_equal(a, b))
-        mean = float(np.mean(overlap))
+        mean = overlap(card_res[name]["ids"], ids)
         log("host_vs_card", batch=name, mean_overlap=mean,
-            exact_match_frac=exact / len(ids), host_s=time.time() - t)
+            exact_match_frac=float(np.mean([
+                np.array_equal(a, b)
+                for a, b in zip(card_res[name]["ids"], ids)])),
+            host_s=time.time() - t)
         check(mean >= 0.98,
               f"{name}: card vs host id-set overlap {mean:.4f} < 0.98")
 
@@ -919,10 +1013,7 @@ def live_index(ds, index, held, batches, dev, card, log) -> dict:
     host = BatchedEngine.from_state(copy.deepcopy(eng.state), eng.cfg,
                                     device="cpu", vocab_sizes=eng.vocab_sizes)
     h_ids, _ = host.search(qs)
-    overlap = [1.0 if a.size == b.size == 0 else
-               np.intersect1d(a, b).size / max(a.size, b.size)
-               for a, b in zip(ids, h_ids)]
-    mean = float(np.mean(overlap))
+    mean = overlap(ids, h_ids)
     log("live_host_vs_card", mean_overlap=mean,
         exact_match_frac=float(np.mean([np.array_equal(a, b)
                                         for a, b in zip(ids, h_ids)])),
@@ -930,6 +1021,241 @@ def live_index(ds, index, held, batches, dev, card, log) -> dict:
     check(mean >= 0.98,
           f"post-churn card vs host id-set overlap {mean:.4f} < 0.98")
     return launches
+
+
+def overlap(a_ids, b_ids) -> float:
+    """Mean per-lane id-set overlap of two answers to one batch."""
+    import numpy as np
+    return float(np.mean([
+        1.0 if a.size == b.size == 0 else
+        np.intersect1d(a, b).size / max(a.size, b.size)
+        for a, b in zip(a_ids, b_ids)]))
+
+
+class FirstCalls:
+    """While open, ``kernels.ops``' K1-K3 entries keep the arguments of
+    their first call (tensors cloned) and pass every call through."""
+
+    def __init__(self, names=None):
+        self.names = names or SEARCH_KERNELS
+        self.seen = {}
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import ops
+        self.real = {name: getattr(ops, name) for name in self.names}
+
+        def wrap(name):
+            def fn(*args):
+                if name not in self.seen:
+                    self.seen[name] = tuple(
+                        a.clone() if torch.is_tensor(a) else a for a in args)
+                return self.real[name](*args)
+            return fn
+
+        for name in self.names:
+            setattr(ops, name, wrap(name))
+        return self.seen
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        for name, fn in self.real.items():
+            setattr(ops, name, fn)
+
+
+def check_shard_kernels(seen, label, log) -> None:
+    """K1-K3 on the card tensors a shard's search gave them (``FirstCalls``
+    of the shard searched first), each against its plain version with the
+    kernel phases' tolerances: K1 bit-exact, K2 as ``check_walk``, K3 as
+    ``check_topk``. The launches these comparisons make are taken back out
+    of the path's counts."""
+    import torch
+    from repro_torch.core.batched.bitmap import popcount, unpack_bits
+    from repro_torch.kernels import build, fiber_expand, filter_eval, ref
+    from repro_torch.kernels import masked_cosine_topk as mct
+    saved = dict(build.LAUNCHES)
+    rec = {}
+    if "filter_eval_batch" in seen:
+        a = seen["filter_eval_batch"]
+        got = filter_eval.filter_eval_batch(*a)
+        check(torch.equal(got, ref.filter_eval_batch(*a)),
+              f"{label} K1: kernel != plain")
+        rec.update(k1_n=a[0].shape[0], k1_tables=tuple(a[1].shape),
+                   k1_bounds=a[4] is not None,
+                   k1_pass_bits=int(popcount(got).sum()))
+    if "fiber_expand_walk" in seen:
+        q, corpus, ids, bm = seen["fiber_expand_walk"]
+        rec.update(k2_n=corpus.shape[0], k2_ids=tuple(ids.shape),
+                   k2_max_abs_err=check_walk(
+                       f"{label} K2",
+                       fiber_expand.fiber_expand_walk(q, corpus, ids, bm),
+                       ref.fiber_expand_walk(q, corpus, ids, bm)))
+    if "masked_cosine_topk" in seen:
+        q, corpus, bm, k = seen["masked_cosine_topk"]
+        mask = unpack_bits(bm, corpus.shape[0])
+        err, mism = check_topk(
+            f"{label} K3", mct.masked_cosine_topk(q, corpus, bm, k),
+            ref.masked_cosine_topk(q, corpus, bm, k), mask, q, corpus)
+        rec.update(k3_n=corpus.shape[0], k3_q=q.shape[0], k3_k=k,
+                   k3_set_bits=int(mask.sum()), k3_max_abs_err=err,
+                   k3_id_mismatches=mism)
+    torch.cuda.synchronize()
+    build.LAUNCHES.clear()
+    build.LAUNCHES.update(saved)
+    log("sharded_kernels", batch=label, **rec)
+
+
+def sharded_path(ds, held, batches, card_res, dev, card, log) -> dict:
+    """The sharded engine in reference mode on the card: the corpus in
+    N_SHARDS row shards (capacity for the held-out rows), the conjunctive
+    Q=64, OR and range batches through ``ShardedEngine(device="cuda")``
+    (checked, timed, recall beside the unsharded engine's, ids against the
+    same index on the host), then a live index from the same state (the
+    timestamp field left out, as in ``live_index``): SHARD_INSERT held-out
+    rows ingested, SHARD_DELETE rows deleted, the survivors findable and
+    the deleted never returned; then the port's two sharded smokes.
+    Returns the path's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.core.batched import insert, lifecycle
+    from repro_torch.core.batched.sharded import (ShardedEngine,
+                                                  build_sharded_index,
+                                                  index_from_state)
+    from repro_torch.core.config import FnsConfig, WalkConfig
+    from repro_torch.core.types import FilterPredicate, Query
+    from repro_torch.data.ground_truth import recall_at_k
+    from repro_torch.kernels import build
+
+    cfg = FnsConfig(walk=WalkConfig(k=K)).with_knobs(
+        {"serve.capacity": N_PAPER + N_INSERT})
+    names = ("conj_q64", "or_q64", "range_q64")
+    gts = {name: ground_truth(ds, batches[name], dev) for name in names}
+    build.LAUNCHES.clear()
+    t = time.time()
+    sidx = build_sharded_index(ds.vectors, ds.metadata, N_SHARDS,
+                               config=cfg, device=dev)
+    torch.cuda.synchronize()
+    log("sharded_build", s=time.time() - t, shards=N_SHARDS,
+        rows_per_shard=sidx.rows_per_shard,
+        graph_width=int(sidx.adjacency.shape[2]),
+        clusters=int(sidx.datlas.centroids.shape[1]),
+        vectors_mb=sidx.vectors.numel() * 4 / 2**20)
+    eng = ShardedEngine(sidx, None, cfg, device=dev)
+    card_ids, checked = {}, set()
+    for name in names:
+        qs = batches[name]
+        # warm-up; the kernels' first calls (on shard 0) are held to their
+        # plain versions
+        with FirstCalls() as seen:
+            eng.search(qs)
+        torch.cuda.synchronize()
+        check_shard_kernels(seen, f"sharded/{name}", log)
+        checked |= set(seen)
+        d0 = eng.dispatches
+        t = time.time()
+        ids, stats = eng.search(qs)
+        ms = (time.time() - t) * 1e3
+        check(eng.dispatches - d0 == N_SHARDS, f"sharded {name}: dispatches")
+        gt, masks = gts[name]
+        check_results(f"sharded/{name}", ids, masks, np.arange(N_PAPER))
+        card_ids[name] = ids
+        log("sharded_search", batch=name, Q=len(qs), ms_per_batch=ms,
+            qps=len(qs) / ms * 1e3,
+            recall_at_10=float(np.mean([recall_at_k(r, g)
+                                        for r, g in zip(ids, gt)])),
+            unsharded_ms_per_batch=card_res[name]["ms"],
+            unsharded_recall_at_10=card_res[name]["recall"],
+            overlap_with_unsharded=overlap(ids, card_res[name]["ids"]),
+            mean_walks=float(stats["walks"].mean()),
+            mean_hops=float(stats["hops"].mean()), syncs=stats["syncs"],
+            card=card)
+    check(checked == set(SEARCH_KERNELS),
+          f"sharded: kernels never checked on a shard: "
+          f"{sorted(set(SEARCH_KERNELS) - checked)}")
+    # the same index on the host
+    host = ShardedEngine(sidx, None, cfg, device="cpu")
+    for name in names:
+        t = time.time()
+        ids, _ = host.search(batches[name])
+        mean = overlap(card_ids[name], ids)
+        log("sharded_host_vs_card", batch=name, mean_overlap=mean,
+            exact_match_frac=float(np.mean([
+                np.array_equal(a, b)
+                for a, b in zip(card_ids[name], ids)])),
+            host_s=time.time() - t)
+        check(mean >= 0.98, f"sharded {name}: card vs host id-set overlap "
+                            f"{mean:.4f} < 0.98")
+    del host
+
+    # the live index: the same slabs without the timestamp field (the
+    # insert path refuses codes at or above v_cap), re-emitted on the card
+    n_f = N_FIELDS + 2
+    state = eng.state
+    del eng, sidx
+    torch.cuda.empty_cache()
+    for sl in state.shards:
+        sl.metadata = np.ascontiguousarray(sl.metadata[:, :n_f])
+    vocab = tuple(ds.vocab_sizes[:n_f])
+    t = time.time()
+    eng = ShardedEngine(index_from_state(state, vocab, device=dev), None,
+                        cfg, device=dev)
+    torch.cuda.synchronize()
+    log("sharded_from_state", s=time.time() - t)
+    held_v = held[0][:SHARD_INSERT]
+    held_m = np.ascontiguousarray(held[1][:SHARD_INSERT, :n_f])
+    torch.cuda.synchronize()
+    t = time.time()
+    gids = eng.insert_batch(held_v, held_m)
+    torch.cuda.synchronize()
+    dt = time.time() - t
+    check(np.array_equal(gids, np.arange(N_PAPER, N_PAPER + SHARD_INSERT)),
+          "sharded inserted gids are not the appended ids")
+    t = time.time()
+    eng.refresh_device()
+    torch.cuda.synchronize()
+    log("sharded_insert", rows=SHARD_INSERT, ms=dt * 1e3,
+        rows_per_s=SHARD_INSERT / dt, publish_ms=(time.time() - t) * 1e3,
+        stacked_mb=sum(x.numel() * x.element_size() for x in (
+            eng.vectors, eng.adjacency, eng.metadata, eng.global_ids))
+        / 2**20, card=card)
+    rng = np.random.default_rng(4)
+    dead = np.sort(np.concatenate([
+        rng.choice(gids, SHARD_DELETE // 2, replace=False),
+        rng.choice(N_PAPER, SHARD_DELETE // 2, replace=False)]))
+    t = time.time()
+    check(eng.delete_batch(dead) == SHARD_DELETE, "sharded delete count")
+    torch.cuda.synchronize()
+    log("sharded_delete", rows=SHARD_DELETE, ms=(time.time() - t) * 1e3)
+    # metadata by global id (build rows, then the inserted rows in order)
+    all_meta = np.concatenate([ds.metadata[:, :n_f], held_m])
+    live = np.setdiff1d(np.arange(N_PAPER + SHARD_INSERT), dead)
+
+    def masks_of(qs):
+        return np.stack([q.predicate.mask(all_meta, vocab) for q in qs])
+
+    keep = np.setdiff1d(gids, dead)
+    qs = own_queries(held_v[keep - N_PAPER], all_meta[keep])
+    ids = eng.search(qs)[0]
+    check_results("sharded/findable", ids, masks_of(qs), live)
+    found = sum(int(g) in r.tolist() for g, r in zip(keep, ids))
+    check(found == keep.size,
+          f"sharded: only {found}/{keep.size} inserted rows findable")
+    dead_v = np.concatenate([ds.vectors, held_v])[dead]
+    dqs = own_queries(dead_v, all_meta[dead])
+    for name, qs in (("deleted/own", dqs),
+                     ("deleted/unconstrained",
+                      [Query(vector=q.vector,
+                             predicate=FilterPredicate.make({}))
+                       for q in dqs])):
+        check_results(f"sharded/{name}", eng.search(qs)[0], masks_of(qs),
+                      live)
+    log("sharded_live", findable=f"{found}/{keep.size}",
+        deleted=SHARD_DELETE, ok=True)
+    del eng, state
+    torch.cuda.empty_cache()
+    for smoke in (insert._smoke, lifecycle._smoke):
+        smoke(dev)
+    return path_launches("sharded", SEARCH_KERNELS, log)
 
 
 def run(report_path: str | None) -> int:
@@ -973,6 +1299,9 @@ def run(report_path: str | None) -> int:
     torch.cuda.empty_cache()
     by_path["live_index"] = live_index(ds, index, held, batches, dev, card,
                                        log)
+    torch.cuda.empty_cache()
+    by_path["sharded"] = sharded_path(ds, held, batches, card_res, dev, card,
+                                      log)
     # each kernel's launches come from the path it belongs to: K1-K3 from
     # the search, K4 and K5 from the parity gate
     for name, rec in records.items():

@@ -436,6 +436,25 @@ def _to_gids(ids: list[np.ndarray], gids) -> list[np.ndarray]:
     return ids if gids is None else [gids[i] for i in ids]
 
 
+def fetch_results(out: dict, q_n: int):
+    """A searched batch's results on the host, by one device-to-host copy
+    (results, walks and hops packed into one int32 tensor): the ids of
+    each query's found rows (``res_v < INF / 2``) as numpy arrays, and
+    stats with per-query ``walks``/``hops`` and ``syncs``, the host reads
+    the batch took, this copy included."""
+    k = out["res_v"].shape[1]
+    host = torch.cat([out["res_v"].view(torch.int32), out["res_i"],
+                      out["walks"].to(torch.int32)[:, None],
+                      out["hops"].to(torch.int32)[:, None]],
+                     dim=1).cpu().numpy()
+    res_v = np.ascontiguousarray(host[:, :k]).view(np.float32)
+    res_i = host[:, k:2 * k]
+    ids = [res_i[i][res_v[i] < INF / 2] for i in range(q_n)]
+    return ids, {"walks": host[:q_n, 2 * k].astype(np.int32),
+                 "hops": host[:q_n, 2 * k + 1].astype(np.int64),
+                 "syncs": out["syncs"] + 1}
+
+
 def _place(x: np.ndarray, device, dtype=None) -> torch.Tensor:
     """A host array as a tensor on ``device`` that shares no memory with
     it, even on the CPU (a slab's arrays keep changing under later
@@ -696,22 +715,9 @@ class BatchedEngine:
         arrays, stats) with per-query ``walks``/``hops``, ``syncs`` (the
         host reads the batch took, the final copy included) and
         ``generation``, the publish generation it was dispatched against."""
-        out = token["out"]
-        k = out["res_v"].shape[1]
-        host = torch.cat([out["res_v"].view(torch.int32), out["res_i"],
-                          out["walks"].to(torch.int32)[:, None],
-                          out["hops"].to(torch.int32)[:, None]],
-                         dim=1).cpu().numpy()
-        q_n = token["q_n"]
-        res_v = np.ascontiguousarray(host[:, :k]).view(np.float32)
-        res_i = host[:, k:2 * k]
-        ids = _to_gids([res_i[i][res_v[i] < INF / 2] for i in range(q_n)],
-                       token["gids"])
-        stats = {"walks": host[:q_n, 2 * k].astype(np.int32),
-                 "hops": host[:q_n, 2 * k + 1].astype(np.int64),
-                 "syncs": out["syncs"] + 1,
-                 "generation": token["generation"]}
-        return ids, stats
+        ids, stats = fetch_results(token["out"], token["q_n"])
+        stats["generation"] = token["generation"]
+        return _to_gids(ids, token["gids"]), stats
 
     def search(self, queries: list[Query]):
         """Filtered top-k for a batch: ``collect(dispatch(queries))``. The

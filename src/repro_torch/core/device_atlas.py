@@ -165,6 +165,22 @@ def words_to_torch(words: np.ndarray, device) -> torch.Tensor:
                             .view(np.int32)).to(device)
 
 
+def stack_atlases(atlases: list["DeviceAtlas"]) -> "DeviceAtlas":
+    """Stack per-shard atlases into one DeviceAtlas whose leaves carry a
+    leading shard dim (the sharded index's form; ``DeviceAtlas.shard``
+    takes one back out). Shards must agree on v_cap and on every leaf's
+    shape — the sharded build pads them to common shapes first."""
+    caps = {a.v_cap for a in atlases}
+    if len(caps) != 1:
+        raise ValueError(f"shard atlases disagree on v_cap: {sorted(caps)}")
+    shapes = {tuple(tuple(t.shape) for t in a.leaves()) for a in atlases}
+    if len(shapes) != 1:
+        raise ValueError(f"shard atlases disagree on shapes: {shapes}")
+    return DeviceAtlas(*(torch.stack(ls) for ls in
+                         zip(*(a.leaves() for a in atlases))),
+                       v_cap=caps.pop())
+
+
 def _excl_cumsum(x: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(x, dim=-1) - x
 
@@ -200,6 +216,43 @@ class DeviceAtlas:
     @property
     def device(self) -> torch.device:
         return self.centroids.device
+
+    def leaves(self) -> tuple[torch.Tensor, ...]:
+        """The tensor fields in declaration order (``v_cap`` left out)."""
+        return tuple(getattr(self, f.name) for f in dataclasses.fields(self)
+                     if f.name != "v_cap")
+
+    def shard(self, s: int) -> "DeviceAtlas":
+        """Shard ``s`` of a stacked atlas (``stack_atlases``): each leaf's
+        ``leaf[s]``, a view that copies nothing and, for a contiguous
+        stack, is contiguous itself."""
+        return DeviceAtlas(*(t[s] for t in self.leaves()), v_cap=self.v_cap)
+
+    def pad_rows(self, m: int) -> "DeviceAtlas":
+        """Extend the point-indexed tensors to ``m`` rows with inert pad
+        entries (sharded indexes pad every shard to a common row count).
+
+        Pads are assigned to cluster 0 and appended at the tail of
+        ``csr_pts``/``inv_perm`` (each pad maps to itself). That leaves
+        the real-row CSR ranks untouched, and a pad position contributes
+        nothing to the selection math because the caller's pass bitmap
+        (ANDed with the shard's row-validity bitmap) is always 0 on
+        pads."""
+        n = self.assign.shape[0]
+        if m < n:
+            raise ValueError(f"pad_rows to {m} < current {n} rows")
+        if m == n:
+            return self
+        tail = torch.arange(n, m, dtype=self.csr_pts.dtype,
+                            device=self.device)
+        return DeviceAtlas(
+            self.centroids,
+            torch.cat([self.assign, torch.zeros(m - n, dtype=self.assign.dtype,
+                                                device=self.device)]),
+            torch.cat([self.csr_pts, tail]),
+            self.csr_offsets,
+            torch.cat([self.inv_perm, tail]),
+            self.presence, self.code_min, self.code_max, v_cap=self.v_cap)
 
     @staticmethod
     def from_atlas(atlas, v_cap: int | None = None,

@@ -14,6 +14,7 @@ from repro_torch.core import predicate as P
 from repro_torch.core.atlas import AnchorAtlas
 from repro_torch.core.batched.insert import (HostAtlas, InsertParams,
                                              InsertState, ShardState)
+from repro_torch.core.batched.sharded import ShardedIndex
 from repro_torch.core.device_atlas import (DeviceAtlas, resolve_device,
                                            words_to_torch)
 from repro_torch.core.graph import Graph
@@ -135,3 +136,26 @@ def insert_state_from_reference(ref_state) -> InsertState:
         deleted=int(ref_state.deleted),
         compactions=int(ref_state.compactions), grown=int(ref_state.grown),
         pending=[tuple(int(x) for x in e) for e in ref_state.pending])
+
+
+def sharded_index_from_reference(ref_sidx, device=None) -> ShardedIndex:
+    """The reference's ``ShardedIndex`` (stacked arrays, stacked atlas
+    leaves, and the host ``InsertState`` where it has one) as the port's,
+    on ``device`` (None means CUDA), sharing no memory with it."""
+    dev = resolve_device(device)
+
+    def t(x, dtype):
+        return torch.from_numpy(_np(x)).to(device=dev, dtype=dtype)
+
+    st = ref_sidx.insert_state
+    return ShardedIndex(
+        vectors=t(ref_sidx.vectors, torch.float32),
+        adjacency=t(ref_sidx.adjacency, torch.int32),
+        metadata=t(ref_sidx.metadata, torch.int32),
+        global_ids=t(ref_sidx.global_ids, torch.int32),
+        valid_bm=bitmap_to_torch(ref_sidx.valid_bm, dev),
+        datlas=device_atlas_from_reference(ref_sidx.datlas, dev),
+        n=int(ref_sidx.n),
+        vocab_sizes=(None if ref_sidx.vocab_sizes is None
+                     else tuple(int(v) for v in ref_sidx.vocab_sizes)),
+        insert_state=None if st is None else insert_state_from_reference(st))

@@ -53,7 +53,11 @@
 // and the warp packs its 32 flags with __ballot_sync. Rows >= n never
 // pass, so the pad bits of the last word are 0 even when no clause is
 // active (the Pallas kernel leaves them set there; its jnp oracle clears
-// them).
+// them). A row is read only up to its first failing clause, so a call
+// moves the first active column's sectors and the later columns' sectors
+// of the rows still passing; streaming whole rows through a cp.async ring
+// in shared memory moves every byte of the metadata and measured slower
+// on the H100 (PERF.md).
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""K1-K3 and K5 alone on the card: each kernel against its plain version,
-then timed beside the plain version and, where there is one, one PyTorch
-call for the same function.
+"""The five kernels alone on the card: each kernel against its plain
+version, then timed beside the plain version and, where there is one, one
+PyTorch call for the same function.
 
     python3 tools/torch_kernel_bench.py [--src DIR] [--reps N] [--check-only]
         [--sweep] [--out PATH]
@@ -18,24 +18,32 @@ R=96 neighbour slots of which 41% hold a valid id (the smoke's 10,139 of
 105,100 x 27 int32 metadata with the smoke's vocabulary sizes (3% of
 entries -1) and Q=256 clause tables with v_cap 1024: conjunctive (1-4
 clauses over the 24 categorical fields), OR with D = 8 (2-8 live
-disjuncts) and range (half the clauses intervals). Before the timed
+disjuncts) and range (half the clauses intervals); for K4 one
+conjunctive query (3 active clauses of C = 4 over the categorical fields,
+v_cap 256) over the same metadata and over 10x its rows (1,051,000 x 27,
+113.5 MB, where the bytes and not the launch dominate). Before the timed
 cases, ``chip_smoke.ragged_checks`` holds every kernel to its plain
 version at ragged shapes (n % 32 != 0, d % 4 != 0, Q below and across
-the tiles, K1's tile and group edges). Checks are the smoke's: K1
-bit-exact; K2 identical -inf positions and rtol = atol = 1e-5; K5
-identical -inf positions and sims within 1e-4; K3 identical fill, sims
-within 1e-4, an id that differs from the plain version's must pass its
-mask and score its sim, no duplicates.
+the tiles, K1's tile and group edges, K4 across its words and grid
+cap).
+Checks are the smoke's: K1 and K4 bit-exact; K2 identical -inf positions
+and rtol = atol = 1e-5; K5 identical -inf positions and sims within
+1e-4; K3 identical fill, sims within 1e-4, an id that differs from the
+plain version's must pass its mask and score its sim, no duplicates.
 
 ``--src`` picks the package to load (``src`` of this checkout by default;
 point it at another checkout's ``src`` to time that version's kernels in
 the same call; the ragged checks run only for a version with K1's
 ``filter_plan``). Each function is timed in turns (kernel, library,
-plain, kernel, library; K1 has no library call); a time is the lower of
-its medians of CUDA-event timed runs with the L2 cache flushed before
-each, each run queued behind a spin kernel so that the host's enqueue
-time does not count. Prints one JSON line per case, the card's name and
-power limit, and exits non-zero on any failed check. Each record also
+plain, kernel, library; K1 and K4 have no library call); a time is the
+lower of its medians of CUDA-event timed runs with the L2 cache flushed
+before each, each run queued behind a spin kernel so that the host's
+enqueue time does not count. Prints one JSON line per case, the card's
+name and power limit, and exits non-zero on any failed check. K4's bound
+counts the bytes its input needs (``chip_smoke.k4_bytes``: the first
+active clause's column, later columns only for the rows still passing,
+by 32-byte sector), with the whole metadata's bound beside it
+(``metadata_bound_ms``). Each record also
 gives the wrapper's host time per call while the card is busy
 (``host_ms``: a call that waits for the card shows as milliseconds), and
 K2's a streaming read (``sum``) of as many contiguous corpus rows as the
@@ -205,6 +213,38 @@ def main() -> int:
                     lambda: fv.filter_eval_batch(meta, none, allowed),
                     args.reps, flush)
         log(f"K1/{form}", **rec)
+
+    # K4: one conjunctive query (3 active clauses of C = 4 over the
+    # categorical fields, v_cap 256), over the smoke's 105,100 rows and
+    # over 10x as many (where bytes, not launch, dominate); bit-exact, then
+    # timed
+    fields4, allowed4 = smoke.k4_tables(4, 3, VOCAB, 256, gen, dev,
+                                        fields_from=range(24))
+    for label, n_rows in (("smoke", n), ("rows_x10", 10 * n)):
+        meta4 = meta if n_rows == n else smoke.k1_meta(n_rows, VOCAB, gen,
+                                                       dev)
+        got = fv.filter_eval(meta4, fields4, allowed4)
+        want = ref.filter_eval(meta4, fields4, allowed4)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise SystemExit(f"K4 {label}: kernel != plain")
+        rec = dict(n=n_rows, F=meta4.shape[1], C=4, active_clauses=3,
+                   v_cap=256, pass_bits=int(popcount(got)), ok=True)
+        if not args.check_only:
+            n_bytes, full_bytes = smoke.k4_bytes(meta4, fields4, allowed4)
+            b_ms, b_by = smoke.bound(n_bytes, 4.0 * n_rows * 3)
+            timed(rec, {
+                "ms": lambda: fv.filter_eval(meta4, fields4, allowed4),
+                "plain_ms": lambda: ref.filter_eval(meta4, fields4,
+                                                    allowed4)},
+                args.reps * 5, flush, order=("ms", "plain_ms", "ms"))
+            rec.update(host_ms=host_ms(lambda: fv.filter_eval(
+                meta4, fields4, allowed4), 50), bound_ms=b_ms,
+                bound_by=b_by, share_of_bound=b_ms / rec["ms"],
+                needed_mb=n_bytes / 1e6,
+                metadata_bound_ms=smoke.bound(full_bytes, 0)[0])
+        log(f"K4/{label}", **rec)
+        del meta4
 
     corpus = unit((n, d), gen, dev)
     queries = unit((256, d), gen, dev)
