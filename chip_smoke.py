@@ -14,7 +14,7 @@ mask at k=32) and also at ragged shapes (K1 in its three forms across its
 tile and query-group edges; K4 across its words and grid, at odd and even
 F, v_cap 32 to 1024 and with every clause inactive; K2, K3 and K5 at
 n % 32 != 0 and d % 4 != 0; K5 with no valid id, no pass bit and every
-pass bit), and then drives four paths, each with the launch counts cleared
+pass bit), and then drives five paths, each with the launch counts cleared
 just before it and read just after:
 
 * the kernel/plain-version parity gate (``kernels.parity.parity_gate``),
@@ -35,7 +35,19 @@ just before it and read just after:
   above and against the same index searched on the host, then 256
   held-out rows ingested and 128 rows deleted (every inserted survivor
   findable, no deleted row returned), then the port's two sharded smokes
-  (``insert._smoke``, ``lifecycle._smoke``) on the card.
+  (``insert._smoke``, ``lifecycle._smoke``) on the card;
+* the serving path (``RetrievalService(device="cuda")`` over the same
+  index, capacity for the held-out rows): ``query_batch`` on the
+  conjunctive Q=64, OR and range batches (held to the main path's ids),
+  on 37 queries and on one (padded to their buckets), the Q=64 batch one
+  query at a time through ``ServePipeline`` (held to ``query_batch``) and
+  16 sequential queries on the host (``query``, the stall regimes by
+  selectivity); then a durable service ingests 256 held-out rows in
+  journaled batches of 64, deletes 128 rows, snapshots, ingests 64 more
+  into the journal only, and ``RetrievalService.recover`` brings it back
+  (equal staleness, the live service's ids, every surviving inserted row
+  findable, no deleted row returned), after which the parity gate runs on
+  the card.
 
 Prints the kernels' timings as one JSON line (each record with its
 share of its bound and its time against one PyTorch call, both from this
@@ -72,6 +84,10 @@ N_DELETE = 256      # rows the live-index phase deletes
 N_SHARDS = 4        # the sharded path's row shards, all on the one card
 SHARD_INSERT = 256  # held-out rows the sharded path ingests
 SHARD_DELETE = 128  # rows it deletes (half of them inserted ones)
+SERVE_INSERT = 256  # held-out rows the serve path ingests, journaled,
+SERVE_CHUNK = 64    # in batches of this many
+SERVE_DELETE = 128  # rows it deletes (half of them inserted ones)
+SERVE_TAIL = 64     # rows ingested after the snapshot (journal only)
 D = 2048
 N_FIELDS = 24
 K = 10              # results per query
@@ -866,6 +882,39 @@ def own_queries(vectors, metadata):
     return out
 
 
+def check_churn(label, search, vectors, metadata, vocab, keep, dead,
+                live) -> str:
+    """After inserts and deletes: every row of ``keep`` is found by its own
+    vector and codes, and no row of ``dead`` comes back, neither to its
+    own vector and codes nor to the unconstrained predicate; every answer
+    passes its predicate and lies in ``live``. Rows are global ids, which
+    index ``vectors`` and ``metadata``; ``search`` maps up to Q_KERNEL
+    queries to their ids. Returns "found/kept"."""
+    import numpy as np
+    from repro_torch.core.types import FilterPredicate, Query
+
+    def run(name, qs):
+        ids = []
+        for lo in range(0, len(qs), Q_KERNEL):
+            part = qs[lo:lo + Q_KERNEL]
+            got = search(part)
+            check_results(f"{label}/{name}", got, np.stack(
+                [q.predicate.mask(metadata, vocab) for q in part]), live)
+            ids += got
+        return ids
+
+    ids = run("findable", own_queries(vectors[keep], metadata[keep]))
+    found = sum(int(g) in r.tolist() for g, r in zip(keep, ids))
+    check(found == keep.size,
+          f"{label}: only {found}/{keep.size} inserted rows findable")
+    dq = own_queries(vectors[dead], metadata[dead])
+    run("deleted/own", dq)
+    run("deleted/unconstrained",
+        [Query(vector=q.vector, predicate=FilterPredicate.make({}))
+         for q in dq])
+    return f"{found}/{keep.size}"
+
+
 def live_index(ds, index, held, batches, dev, card, log) -> dict:
     """The live-index path: a capacity-slab engine over the smoke's index
     ingests the held-out rows (deferred repair), the maintenance loop
@@ -963,36 +1012,15 @@ def live_index(ds, index, held, batches, dev, card, log) -> dict:
     live_rows = np.nonzero(sh.live)[0]
     live_gids = sh.global_ids[live_rows]
     all_meta = sh.metadata
-
-    def masks_of(qs):
-        return np.stack([q.predicate.mask(all_meta, vocab) for q in qs])
-
-    # every surviving inserted row is found by its own vector + codes
-    keep = np.setdiff1d(inserted, dead)
-    found = 0
-    for lo in range(0, keep.size, Q_KERNEL):
-        rows = keep[lo:lo + Q_KERNEL]
-        qs = own_queries(sh.vectors[rows], all_meta[rows])
-        ids = eng.search(qs)[0]
-        check_results("findable", ids, masks_of(qs), live_gids)
-        found += sum(int(g) in r.tolist() for g, r in zip(rows, ids))
-    check(found == keep.size,
-          f"only {found}/{keep.size} inserted rows findable")
-    # deleted rows never come back: not to their own vector and codes,
-    # not to the unconstrained predicate
-    dqs = own_queries(sh.vectors[dead], all_meta[dead])
-    for name, qs in (("deleted/own", dqs),
-                     ("deleted/unconstrained",
-                      [Query(vector=q.vector,
-                             predicate=FilterPredicate.make({}))
-                       for q in dqs])):
-        ids = eng.search(qs)[0]
-        check_results(name, ids, masks_of(qs), live_gids)
+    # gids are slab rows here (appended rows, no compaction)
+    findable = check_churn("live", lambda qs: eng.search(qs)[0], sh.vectors,
+                           all_meta, vocab, np.setdiff1d(inserted, dead),
+                           dead, live_gids)
 
     # the post-churn conjunctive batch: timing, recall over the live rows
     qs = batches["conj_q64"]
     ids, stats, ms = timed_search(qs)
-    masks = masks_of(qs)
+    masks = np.stack([q.predicate.mask(all_meta, vocab) for q in qs])
     check_results("post_churn", ids, masks, live_gids)
     vecs = torch.from_numpy(sh.vectors[live_rows]).to(dev)
     q_vecs = torch.from_numpy(np.stack([q.vector for q in qs])).to(dev)
@@ -1006,7 +1034,7 @@ def live_index(ds, index, held, batches, dev, card, log) -> dict:
     log("post_churn", Q=len(qs), ms_per_batch=ms, qps=len(qs) / ms * 1e3,
         recall_at_10=rec, mean_walks=float(stats["walks"].mean()),
         mean_hops=float(stats["hops"].mean()), syncs=stats["syncs"],
-        findable=f"{found}/{keep.size}", card=card)
+        findable=findable, card=card)
 
     # the same churned state on the host: id-set overlap
     t = time.time()
@@ -1063,12 +1091,14 @@ class FirstCalls:
             setattr(ops, name, fn)
 
 
-def check_shard_kernels(seen, label, log) -> None:
-    """K1-K3 on the card tensors a shard's search gave them (``FirstCalls``
-    of the shard searched first), each against its plain version with the
-    kernel phases' tolerances: K1 bit-exact, K2 as ``check_walk``, K3 as
-    ``check_topk``. The launches these comparisons make are taken back out
-    of the path's counts."""
+def check_first_calls(seen, label, log) -> None:
+    """K1-K3 on the card tensors a path's search gave them (``FirstCalls``
+    of one batch: on the sharded path the shard searched first), each
+    against its plain version with the kernel phases' tolerances: K1
+    bit-exact, K2 as ``check_walk``, K3 as ``check_topk``. The launches
+    these comparisons make are taken back out of the path's counts. The
+    record's phase is the label's path (``sharded/conj_q64`` logs
+    ``sharded_kernels``)."""
     import torch
     from repro_torch.core.batched.bitmap import popcount, unpack_bits
     from repro_torch.kernels import build, fiber_expand, filter_eval, ref
@@ -1102,7 +1132,7 @@ def check_shard_kernels(seen, label, log) -> None:
     torch.cuda.synchronize()
     build.LAUNCHES.clear()
     build.LAUNCHES.update(saved)
-    log("sharded_kernels", batch=label, **rec)
+    log(label.split("/")[0] + "_kernels", batch=label, **rec)
 
 
 def sharded_path(ds, held, batches, card_res, dev, card, log) -> dict:
@@ -1122,7 +1152,6 @@ def sharded_path(ds, held, batches, card_res, dev, card, log) -> dict:
                                                   build_sharded_index,
                                                   index_from_state)
     from repro_torch.core.config import FnsConfig, WalkConfig
-    from repro_torch.core.types import FilterPredicate, Query
     from repro_torch.data.ground_truth import recall_at_k
     from repro_torch.kernels import build
 
@@ -1149,7 +1178,7 @@ def sharded_path(ds, held, batches, card_res, dev, card, log) -> dict:
         with FirstCalls() as seen:
             eng.search(qs)
         torch.cuda.synchronize()
-        check_shard_kernels(seen, f"sharded/{name}", log)
+        check_first_calls(seen, f"sharded/{name}", log)
         checked |= set(seen)
         d0 = eng.dispatches
         t = time.time()
@@ -1229,33 +1258,274 @@ def sharded_path(ds, held, batches, card_res, dev, card, log) -> dict:
     # metadata by global id (build rows, then the inserted rows in order)
     all_meta = np.concatenate([ds.metadata[:, :n_f], held_m])
     live = np.setdiff1d(np.arange(N_PAPER + SHARD_INSERT), dead)
-
-    def masks_of(qs):
-        return np.stack([q.predicate.mask(all_meta, vocab) for q in qs])
-
-    keep = np.setdiff1d(gids, dead)
-    qs = own_queries(held_v[keep - N_PAPER], all_meta[keep])
-    ids = eng.search(qs)[0]
-    check_results("sharded/findable", ids, masks_of(qs), live)
-    found = sum(int(g) in r.tolist() for g, r in zip(keep, ids))
-    check(found == keep.size,
-          f"sharded: only {found}/{keep.size} inserted rows findable")
-    dead_v = np.concatenate([ds.vectors, held_v])[dead]
-    dqs = own_queries(dead_v, all_meta[dead])
-    for name, qs in (("deleted/own", dqs),
-                     ("deleted/unconstrained",
-                      [Query(vector=q.vector,
-                             predicate=FilterPredicate.make({}))
-                       for q in dqs])):
-        check_results(f"sharded/{name}", eng.search(qs)[0], masks_of(qs),
-                      live)
-    log("sharded_live", findable=f"{found}/{keep.size}",
+    findable = check_churn(
+        "sharded", lambda qs: eng.search(qs)[0],
+        np.concatenate([ds.vectors, held_v]), all_meta, vocab,
+        np.setdiff1d(gids, dead), dead, live)
+    log("sharded_live", findable=findable,
         deleted=SHARD_DELETE, ok=True)
     del eng, state
     torch.cuda.empty_cache()
     for smoke in (insert._smoke, lifecycle._smoke):
         smoke(dev)
     return path_launches("sharded", SEARCH_KERNELS, log)
+
+
+def dir_mb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files) / 2**20
+
+
+def serve_path(ds, index, held, batches, card_res, dev, card, log) -> dict:
+    """The serving path (``serve/``): a ``RetrievalService(device="cuda")``
+    over the smoke's index (no second build) with capacity for the
+    held-out rows answers the conjunctive Q=64, OR and range batches
+    through ``query_batch`` (checked, and held to the main path's ids), a
+    37-query and a one-query batch (padded to their buckets), the Q=64
+    batch one query at a time through ``ServePipeline`` (held to
+    ``query_batch``) and 16 sequential host queries (``query``; the stall
+    regimes by selectivity). Then a durable service over the same index
+    without the timestamp field (the insert path refuses codes at or above
+    v_cap, as in ``live_index``) ingests, deletes, snapshots and ingests
+    once more into the journal only, and ``RetrievalService.recover``
+    brings it back: equal staleness, the same ids, every surviving
+    inserted row findable, no deleted row returned; then the parity gate
+    runs on the card, as a recovery does. Returns the path's launch
+    counts (K1-K5)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core.atlas import AnchorAtlas
+    from repro_torch.core.config import FnsConfig, WalkConfig
+    from repro_torch.core.search import FiberIndex, SearchParams
+    from repro_torch.core.stall import regimes_by_selectivity
+    from repro_torch.core.types import Dataset
+    from repro_torch.data.ground_truth import recall_at_k
+    from repro_torch.kernels import build
+    from repro_torch.kernels.parity import parity_gate
+    from repro_torch.serve.pipeline import ServePipeline
+    from repro_torch.serve.retrieval import RetrievalService
+
+    cap = N_PAPER + N_INSERT
+    cfg = FnsConfig(walk=WalkConfig(k=K)).with_knobs(
+        {"serve.capacity": cap, "serve.queue_max_batch": 16})
+
+    def batch(svc, qs):
+        return svc.query_batch(np.stack([q.vector for q in qs]),
+                               [q.predicate for q in qs])
+
+    def exact_share(a_ids, b_ids):
+        return float(np.mean([np.array_equal(a, b)
+                              for a, b in zip(a_ids, b_ids)]))
+
+    t_path = time.time()
+    names = ("conj_q64", "or_q64", "range_q64")
+    gts = {name: ground_truth(ds, batches[name], dev) for name in names}
+    build.LAUNCHES.clear()
+    svc = RetrievalService(index, SearchParams(k=K), capacity=cap,
+                           config=cfg, device=dev, _ds=ds)
+    t = time.time()
+    svc.engine()
+    torch.cuda.synchronize()
+    log("serve_engine_build", s=time.time() - t, capacity=cap)
+    served, checked = {}, set()
+
+    def held_to_plain(label, fn):
+        # one call whose K1-K3 calls are rerun against the plain versions
+        with FirstCalls() as seen:
+            out = fn()
+        torch.cuda.synchronize()
+        check_first_calls(seen, f"serve/{label}", log)
+        checked.update(seen)
+        return out
+
+    for name in names:
+        qs = batches[name]
+        # warm-up, its kernel calls held to their plain versions
+        held_to_plain(name, lambda: batch(svc, qs))
+        t = time.time()
+        ids, stats = batch(svc, qs)
+        ms = (time.time() - t) * 1e3
+        gt, masks = gts[name]
+        check_results(f"serve/{name}", ids, masks)
+        check(stats["walks"].shape == (len(qs),), f"serve/{name}: stats")
+        mean = overlap(ids, card_res[name]["ids"])
+        served[name] = ids
+        log("serve_query_batch", batch=name, Q=len(qs), ms_per_batch=ms,
+            qps=len(qs) / ms * 1e3,
+            recall_at_10=float(np.mean([recall_at_k(r, g)
+                                        for r, g in zip(ids, gt)])),
+            overlap_with_main_path=mean,
+            exact_match_frac=exact_share(ids, card_res[name]["ids"]),
+            syncs=stats["syncs"], card=card)
+        check(mean >= 0.98, f"serve {name}: query_batch vs main path "
+                            f"id-set overlap {mean:.4f} < 0.98")
+    eng = svc.engine()
+    conj = batches["conj_q256"]
+    for label, qs, bucket in (("q37", conj[64:101], 64),
+                              ("q1", conj[101:102], cfg.serve.min_bucket)):
+        if label == "q1":  # the one bucket no other call runs at
+            held_to_plain(label, lambda: batch(svc, qs))
+        d0 = eng.dispatches
+        t = time.time()
+        ids, stats = batch(svc, qs)
+        ms = (time.time() - t) * 1e3
+        masks = np.stack([q.predicate.mask(ds.metadata, ds.vocab_sizes)
+                          for q in qs])
+        check(len(ids) == len(qs) and stats["walks"].shape == (len(qs),),
+              f"serve/{label}: results not sliced to the real queries")
+        check(eng.dispatches - d0 == 1, f"serve/{label}: dispatches")
+        check_results(f"serve/{label}", ids, masks)
+        log("serve_query_batch", batch=label, Q=len(qs), bucket=bucket,
+            ms_per_batch=ms, card=card)
+
+    # the Q=64 conjunctive batch one query at a time through the pipeline,
+    # after one untimed pipeline batch (its first Q=16 queries) whose
+    # kernel calls are held to their plain versions
+    qs = batches["conj_q64"]
+
+    def pipe_batch():
+        pipe = ServePipeline(svc)
+        for q in qs[:cfg.serve.queue_max_batch]:
+            pipe.submit(q.vector, q.predicate)
+        return pipe.drain()
+
+    check(held_to_plain("pipeline_q16", pipe_batch) == 1,
+          "serve/pipeline: the first 16 queries were not one batch")
+    pipe = ServePipeline(svc)
+    t = time.time()
+    tickets = []
+    for q in qs:
+        tickets.append(pipe.submit(q.vector, q.predicate))
+        pipe.pump()
+    pipe.drain()
+    ms = (time.time() - t) * 1e3
+    check(all(tk.done and tk.error is None for tk in tickets),
+          "serve/pipeline: a ticket did not finish cleanly")
+    p_ids = [tk.ids for tk in tickets]
+    check_results("serve/pipeline", p_ids, gts["conj_q64"][1])
+    mean = overlap(p_ids, served["conj_q64"])
+    log("serve_pipeline", Q=len(qs), batches=pipe.batches,
+        ms_per_query=ms / len(qs),
+        p50_sojourn_ms=float(np.median([tk.sojourn_ms for tk in tickets])),
+        overlap_with_query_batch=mean,
+        exact_match_frac=exact_share(p_ids, served["conj_q64"]), card=card)
+    check(mean >= 0.98, f"serve pipeline vs query_batch id-set overlap "
+                        f"{mean:.4f} < 0.98")
+
+    # the sequential path (host numpy): 16 range queries across the sels
+    rq = batches["range_q64"]
+    picks = list(range(0, 6)) + list(range(21, 26)) + list(range(42, 47))
+    gt, masks = gts["range_q64"]
+    seq_stats, sels, recs = [], [], []
+    t = time.time()
+    for i in picks:
+        ids, _, st = svc.query(rq[i].vector, rq[i].predicate, seed=i)
+        check(ids.size <= K and bool(masks[i][ids].all()),
+              f"serve/sequential[{i}]: a result fails its predicate")
+        seq_stats.append(st)
+        sels.append(float(masks[i].mean()))
+        recs.append(recall_at_k(ids, gt[i]))
+    seq_ms = (time.time() - t) * 1e3 / len(picks)
+    log("serve_sequential", Q=len(picks), host_ms_per_query=seq_ms,
+        recall_at_10=float(np.mean(recs)), device="host", card=card,
+        regimes_by_selectivity=[
+            r for r in regimes_by_selectivity(seq_stats, sels, recs)
+            if r["n"]])
+    del svc, eng, pipe
+    torch.cuda.empty_cache()
+
+    # the durable service: ingest, delete, snapshot, journal, recover
+    n_f = N_FIELDS + 2
+    meta = np.ascontiguousarray(ds.metadata[:, :n_f])
+    vocab = tuple(ds.vocab_sizes[:n_f])
+    held_v = held[0][:SERVE_INSERT + SERVE_TAIL]
+    held_m = np.ascontiguousarray(held[1][:SERVE_INSERT + SERVE_TAIL, :n_f])
+    atlas = AnchorAtlas.from_assignment(index.atlas.centroids,
+                                        index.atlas.assign, meta)
+    svc = RetrievalService(
+        FiberIndex(ds.vectors, meta, index.graph, atlas), SearchParams(k=K),
+        capacity=cap, config=cfg, device=dev,
+        _ds=Dataset(ds.vectors, meta, ds.field_names[:n_f], list(vocab)))
+    root = tempfile.mkdtemp(prefix="fns_serve_")
+    try:
+        t = time.time()
+        svc.enable_durability(root, keep=2)   # the first snapshot
+        log("serve_durable_build", s=time.time() - t,
+            snapshot_mb=dir_mb(os.path.join(root, "snapshots")))
+        gids = []
+        t = time.time()
+        for lo in range(0, SERVE_INSERT, SERVE_CHUNK):
+            gids.append(svc.ingest(held_v[lo:lo + SERVE_CHUNK],
+                                   held_m[lo:lo + SERVE_CHUNK]))
+        torch.cuda.synchronize()
+        dt = time.time() - t
+        gids = np.concatenate(gids)
+        check(np.array_equal(gids, np.arange(N_PAPER, N_PAPER + SERVE_INSERT)),
+              "serve: inserted gids are not the appended rows")
+        rng = np.random.default_rng(5)
+        dead = np.sort(np.concatenate([
+            rng.choice(gids, SERVE_DELETE // 2, replace=False),
+            rng.choice(N_PAPER, SERVE_DELETE // 2, replace=False)]))
+        check(svc.delete(dead) == SERVE_DELETE, "serve: delete count")
+        t2 = time.time()
+        step = svc.snapshot()
+        snap_s = time.time() - t2
+        snap_mb = dir_mb(os.path.join(root, "snapshots",
+                                      f"step_{step:08d}"))
+        tail = svc.ingest(held_v[SERVE_INSERT:], held_m[SERVE_INSERT:])
+        gids = np.concatenate([gids, tail])
+        log("serve_ingest", rows=SERVE_INSERT, chunk=SERVE_CHUNK,
+            ms=dt * 1e3, rows_per_s=SERVE_INSERT / dt, deleted=SERVE_DELETE,
+            snapshot_s=snap_s, snapshot_mb=snap_mb, journal_rows=SERVE_TAIL,
+            journal_mb=os.path.getsize(os.path.join(root, "journal.bin"))
+            / 2**20, card=card)
+        qs = batches["conj_q64"]
+        live_ids, _ = batch(svc, qs)
+        live_stale = svc.staleness()
+        del svc
+        torch.cuda.empty_cache()
+
+        t = time.time()
+        rec = RetrievalService.recover(root, device=dev)
+        torch.cuda.synchronize()
+        recover_s = time.time() - t
+        check(rec.staleness() == live_stale,
+              "serve: recovered staleness differs from the live service's")
+        rec_ids, _ = held_to_plain("recovered_conj_q64",
+                                   lambda: batch(rec, qs))
+        mean = overlap(rec_ids, live_ids)
+        log("serve_recover", s=recover_s, overlap_with_live=mean,
+            exact_match_frac=exact_share(rec_ids, live_ids),
+            corpus_rows=live_stale["corpus_rows"], card=card)
+        check(mean >= 0.98, f"serve: recovered vs live id-set overlap "
+                            f"{mean:.4f} < 0.98")
+
+        # metadata by global id: the build rows, then the inserted rows
+        all_meta = np.concatenate([meta, held_m])
+        all_vecs = np.concatenate([ds.vectors, held_v])
+        live = np.setdiff1d(np.arange(all_meta.shape[0]), dead)
+
+        findable = check_churn("serve", lambda qs: batch(rec, qs)[0],
+                               all_vecs, all_meta, vocab,
+                               np.setdiff1d(gids, dead), dead, live)
+        log("serve_recovered_live", findable=findable,
+            deleted=SERVE_DELETE, ok=True)
+        del rec
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(checked == set(SEARCH_KERNELS),
+          f"serve: kernels never held to their plain versions: "
+          f"{sorted(set(SEARCH_KERNELS) - checked)}")
+    t = time.time()
+    parity_gate(dev)
+    log("serve_parity_gate", ok=True, s=time.time() - t)
+    launches = path_launches("serve", SEARCH_KERNELS + GATE_KERNELS, log)
+    log("serve_path", s=time.time() - t_path)
+    return launches
 
 
 def run(report_path: str | None) -> int:
@@ -1302,6 +1572,9 @@ def run(report_path: str | None) -> int:
     torch.cuda.empty_cache()
     by_path["sharded"] = sharded_path(ds, held, batches, card_res, dev, card,
                                       log)
+    torch.cuda.empty_cache()
+    by_path["serve"] = serve_path(ds, index, held, batches, card_res, dev,
+                                  card, log)
     # each kernel's launches come from the path it belongs to: K1-K3 from
     # the search, K4 and K5 from the parity gate
     for name, rec in records.items():

@@ -285,6 +285,7 @@ def search_batch(datlas: DeviceAtlas, vectors, adjacency, metadata, q_vecs,
     round where nobody seeded is discarded wholesale (it cannot change
     results) and ends the loop, as does a round after which no query is
     short of k; both are read on the host in one sync per round.
+    ``rounds`` in the result counts the ``atlas_round`` calls made.
 
     ``valid_bm`` (optional, (ceil(n/32),) int32) marks live rows: rows
     with a 0 bit fail every predicate. A capacity slab uses it to keep its
@@ -308,13 +309,14 @@ def search_batch(datlas: DeviceAtlas, vectors, adjacency, metadata, q_vecs,
     res_i = torch.full((Q, p.k), -1, dtype=torch.int32, device=dev)
     hops = torch.zeros(Q, dtype=torch.int64, device=dev)
     walks = torch.zeros(Q, dtype=torch.int64, device=dev)
-    syncs = 0
+    syncs = rounds = 0
     for _ in range(p.jump_budget + 1):
         out = atlas_round(datlas, vectors, adjacency, pass_bm, passes,
                           q_vecs, fields, allowed, processed, need,
                           res_v, res_i, p=p, seed_backend=seed_backend,
                           bounds=bounds)
         syncs += out["syncs"] + 1
+        rounds += 1
         any_seeded, any_need = torch.stack(
             [out["seeded"].any(), out["need"].any()]).tolist()
         if not any_seeded:
@@ -326,7 +328,7 @@ def search_batch(datlas: DeviceAtlas, vectors, adjacency, metadata, q_vecs,
         if not any_need:
             break
     return dict(res_v=res_v, res_i=res_i, hops=hops, walks=walks,
-                syncs=syncs)
+                syncs=syncs, rounds=rounds)
 
 
 def clause_dim(n_clauses: int) -> int:
@@ -483,6 +485,13 @@ class BatchedEngine:
     ``graph.graph_k``/``graph.alpha`` are the append path's forward-edge
     count and α-RNG slack. ``serve/maintenance.py`` drains deferred work
     through ``refresh_device``.
+
+    ``dispatches`` counts search calls where the reference counts its
+    jitted calls: one per ``dispatch`` (so one per ``search`` batch), and
+    in ``search_hostloop`` one for the predicate evaluation plus one per
+    restart round. It counts calls, not host syncs: ``search`` reads its
+    loop exits on the host (``stats["syncs"]``, several per batch), where
+    the reference's fused program syncs once.
     """
 
     def __init__(self, index: FiberIndex, config=None, device=None,
@@ -501,6 +510,7 @@ class BatchedEngine:
         self.p = cfg.walk
         self.publish_generation = 0
         self.fence_retries = 0
+        self.dispatches = 0
         v_cap = cfg.atlas.v_cap
         capacity = cfg.serve.capacity
         n = index.vectors.shape[0]
@@ -589,6 +599,7 @@ class BatchedEngine:
         eng.p = cfg.walk
         eng.publish_generation = 0
         eng.fence_retries = 0
+        eng.dispatches = 0
         eng._state = state
         eng._refresh_from_slab(state.v_cap)
         eng.vocab_sizes = (tuple(int(v) for v in vocab_sizes)
@@ -703,6 +714,7 @@ class BatchedEngine:
                            self.metadata, q_vecs, fields, allowed, self.p,
                            self.cfg.serve.seed_backend,
                            valid_bm=self._valid_bm, bounds=bounds)
+        self.dispatches += 1
         gids = (self._state.shards[0].global_ids.copy()
                 if self._state is not None else None)
         return {"out": out, "q_n": len(queries), "generation": gen,
@@ -724,3 +736,13 @@ class BatchedEngine:
         search is deterministic (seeds are nearest matching members, never
         random samples)."""
         return self.collect(self.dispatch(queries))
+
+    def search_hostloop(self, queries: list[Query]):
+        """The reference's per-round host loop, which it keeps as the
+        exact-parity baseline for its fused ``search``. Here ``search``
+        already is that loop, so this runs it and keeps the reference's
+        accounting: one dispatch for the predicate evaluation plus one per
+        restart round, where ``search`` counts one per batch."""
+        token = self.dispatch(queries)  # counts the evaluation
+        self.dispatches += token["out"]["rounds"]
+        return self.collect(token)

@@ -203,6 +203,7 @@ class ShardedEngine:
                 "ShardedEngine: the multi-device (mesh) dispatch is not "
                 "ported (ROADMAP queue 1 item 7); pass mesh=None to run "
                 "every shard on one device")
+        self.mesh = mesh
         self.device = resolve_device(device)
         cfg = coerce_config(config, {}, where="ShardedEngine")
         if seed_backend is not None:

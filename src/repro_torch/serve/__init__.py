@@ -1,1 +1,2 @@
-"""Serving-side background work over a live index (the maintenance loop)."""
+"""The serving layer: the retrieval service, its admission pipeline,
+durability (journal + snapshots) and the maintenance loop."""
