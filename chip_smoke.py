@@ -14,7 +14,7 @@ mask at k=32) and also at ragged shapes (K1 in its three forms across its
 tile and query-group edges; K4 across its words and grid, at odd and even
 F, v_cap 32 to 1024 and with every clause inactive; K2, K3 and K5 at
 n % 32 != 0 and d % 4 != 0; K5 with no valid id, no pass bit and every
-pass bit), and then drives five paths, each with the launch counts cleared
+pass bit), and then drives six paths, each with the launch counts cleared
 just before it and read just after:
 
 * the kernel/plain-version parity gate (``kernels.parity.parity_gate``),
@@ -47,7 +47,21 @@ just before it and read just after:
   into the journal only, and ``RetrievalService.recover`` brings it back
   (equal staleness, the live service's ids, every surviving inserted row
   findable, no deleted row returned), after which the parity gate runs on
-  the card.
+  the card;
+* the LM retrieval bridge (``rag_path``): SmolLM-135M at full width (30
+  layers, d 576, 9 heads / 3 KV, vocab 49,152; random weights from a
+  seed) encodes 65,536 documents of 64 tokens on the card, 6 categorical
+  fields of 8 codes are attached and the index is built on the host and
+  served by ``RetrievalService(device="cuda")``;
+  ``EncodedRetriever.retrieve_batch`` answers 64 prompts, one conjunctive
+  predicate each (selectivities about 0.25 / 0.05 / 0.01), through K1-K3
+  at d = 576 (its first calls held to their plain versions and K2/K3
+  timed on them), with the ids of ``query_batch`` on ``embed_tokens``,
+  every id passing its predicate, and recall against exact filtered
+  top-k; ``retrieve`` answers 8 prompts on the host; 256 card embeddings
+  are held to the port's on the host with the same weights (cosine);
+  ``ServeEngine.generate`` decodes 16 tokens greedily for 4 prompts of
+  32, the same tokens in two calls, the first the card prefill's argmax.
 
 Prints the kernels' timings as one JSON line (each record with its
 share of its bound and its time against one PyTorch call, both from this
@@ -172,12 +186,52 @@ def k4_bytes(meta, fields, allowed) -> tuple[int, int]:
     return need + tables, meta.numel() * 4 + tables
 
 
+def kernel_device_us(prof) -> float:
+    """Device time of a ``torch.profiler`` trace: the sum over its kernel
+    rows only (a torch op's row repeats the time of the kernels it
+    launched, so a sum over every row counts that time twice)."""
+    from torch.autograd import DeviceType
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
 def ratios(rec: dict) -> dict:
     """A timing record with its share of the bound (bound_ms / ms) and its
     time against the library call (ms / library_ms), both from one call."""
     lib = rec.get("library_ms")
     return {**rec, "share_of_bound": rec["bound_ms"] / rec["ms"],
             "vs_library": rec["ms"] / lib if lib else None}
+
+
+def k2_work(q, ids, d: int) -> dict:
+    """K2's bound on these inputs: the queries, each distinct valid row,
+    every id and one pass word per valid id read once, both outputs
+    written; 2·d operations per valid id."""
+    import torch
+    n_valid = int((ids >= 0).sum())
+    n_rows = int(torch.unique(ids[ids >= 0]).numel())
+    n_bytes = (q.numel() * 4 + n_rows * d * 4 + ids.numel() * 4
+               + n_valid * 4 + 2 * ids.numel() * 4)
+    b_ms, b_by = bound(n_bytes, 2.0 * d * n_valid)
+    return dict(bound_ms=b_ms, bound_by=b_by, valid_ids=n_valid,
+                distinct_rows=n_rows)
+
+
+def k3_work(q, mask, bm, k: int, d: int) -> dict:
+    """K3's bound on these inputs: the queries, each row some query's mask
+    passes and the bitmap read once, (Q, k) sims and ids written. Its
+    products are 3xTF32 on the tensor cores, so it is held to three TF32
+    products per multiply-add at the TF32 peak; the fp32 CUDA-core bound
+    is kept beside it."""
+    set_bits = int(mask.sum())
+    rows_any = int(mask.any(dim=0).sum())
+    n_bytes = (q.numel() * 4 + rows_any * d * 4 + bm.numel() * 4
+               + 2 * q.shape[0] * k * 4)
+    n_ops = 2.0 * d * set_bits
+    b_ms, b_by = bound(n_bytes, 3 * n_ops, TF32_FLOP_PER_S)
+    fp32_ms, fp32_by = bound(n_bytes, n_ops)
+    return dict(bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=fp32_ms,
+                bound_fp32_by=fp32_by, set_bits=set_bits, rows_any=rows_any)
 
 
 def check_walk(label, got, want) -> float:
@@ -586,11 +640,6 @@ def kernel_phases(ds, index, batches, dev, flush, log):
             f"K2 Q={q_n}",
             fiber_expand.fiber_expand_walk(qv, vectors, ids_q, bm_q),
             ref.fiber_expand_walk(qv, vectors, ids_q, bm_q))
-        n_valid = int((ids_q >= 0).sum())
-        n_rows = int(torch.unique(ids_q[ids_q >= 0]).numel())
-        n_bytes = (qv.numel() * 4 + n_rows * D * 4 + ids_q.numel() * 4
-                   + n_valid * 4 + 2 * ids_q.numel() * 4)
-        b_ms, b_by = bound(n_bytes, 2.0 * D * n_valid)
         safe_q = ids_q.clamp(min=0).long().flatten()
 
         def k2_library(qv=qv, safe_q=safe_q, q_n=q_n):
@@ -604,8 +653,7 @@ def kernel_phases(ds, index, batches, dev, flush, log):
             plain_ms=cuda_ms(lambda: ref.fiber_expand_walk(
                 qv, vectors, ids_q, bm_q), 20, flush),
             library_ms=cuda_ms(k2_library, 20, flush),
-            bound_ms=b_ms, bound_by=b_by, valid_ids=n_valid,
-            distinct_rows=n_rows))
+            **k2_work(qv, ids_q, D)))
     m = k2[f"q{Q_KERNEL}"]
     n_valid = m["valid_ids"]
     safe = ids.clamp(min=0).long().flatten()
@@ -637,16 +685,6 @@ def kernel_phases(ds, index, batches, dev, flush, log):
             f"K3 {label}", mct.masked_cosine_topk(q_vecs, vectors, bm, k),
             ref.masked_cosine_topk(q_vecs, vectors, bm, k), mask, q_vecs,
             vectors)
-        set_bits = int(mask.sum())
-        rows_any = int(mask.any(dim=0).sum())
-        n_bytes = (q_vecs.numel() * 4 + rows_any * D * 4 + bm.numel() * 4
-                   + 2 * Q_KERNEL * k * 4)
-        # the kernel's products are 3xTF32 on the tensor cores: it is held
-        # to three TF32 products per multiply-add at the TF32 peak; the
-        # fp32 CUDA-core bound is kept beside it
-        n_ops = 2.0 * D * set_bits
-        b_ms, b_by = bound(n_bytes, 3 * n_ops, TF32_FLOP_PER_S)
-        fp32_ms, fp32_by = bound(n_bytes, n_ops)
 
         def k3_library(mask=mask, k=k):
             return torch.topk(torch.where(mask, q_vecs @ vectors.T,
@@ -657,11 +695,8 @@ def kernel_phases(ds, index, batches, dev, flush, log):
                        10, flush),
             plain_ms=cuda_ms(lambda: ref.masked_cosine_topk(
                 q_vecs, vectors, bm, k), 5, flush),
-            library_ms=cuda_ms(k3_library, 5, flush),
-            bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=fp32_ms,
-            bound_fp32_by=fp32_by, max_abs_err=err,
-            id_mismatches=mism, k=k, set_bits=set_bits,
-            rows_any=rows_any))
+            library_ms=cuda_ms(k3_library, 5, flush), max_abs_err=err,
+            id_mismatches=mism, k=k, **k3_work(q_vecs, mask, bm, k, D)))
     m = k3["one_cluster_k10"]
     records["masked_cosine_topk"] = ratios(dict(
         name="masked_cosine_topk", route="cuda", ok=True,
@@ -838,8 +873,8 @@ def main_path(ds, index, batches, dev, card, log, profile_into=None):
             dict(name=e.key, device_us=e.device_time_total,
                  self_device_us=e.self_device_time_total, calls=e.count)
             for e in rows[:30]]
-        profile_into["conj_q64_self_device_us"] = sum(
-            e.self_device_time_total for e in prof.key_averages())
+        # the kernels' own rows: an op's row repeats its kernels' time
+        profile_into["conj_q64_kernel_device_us"] = kernel_device_us(prof)
         profile_into["conj_q64_wall_us"] = (
             max(e.time_range.end for e in prof.events())
             - min(e.time_range.start for e in prof.events()))
@@ -1528,6 +1563,262 @@ def serve_path(ds, index, held, batches, card_res, dev, card, log) -> dict:
     return launches
 
 
+def time_first_calls(seen, label, dev, log) -> dict:
+    """K2 and K3 timed on the arguments of a path's first calls
+    (``FirstCalls``), beside their plain versions, one PyTorch call each
+    and their bound on these inputs (``k2_work``, ``k3_work``). The
+    launches made here are taken back out of the path's counts."""
+    import torch
+    from repro_torch.core.batched.bitmap import unpack_bits
+    from repro_torch.kernels import build, fiber_expand, ref
+    from repro_torch.kernels import masked_cosine_topk as mct
+    saved = dict(build.LAUNCHES)
+    flush = torch.empty(64 << 20, dtype=torch.int8, device=dev)
+    q, corpus, ids, bm = seen["fiber_expand_walk"]
+    (Q, R), d = ids.shape, corpus.shape[1]
+    safe = ids.clamp(min=0).long().flatten()
+
+    def k2_library():
+        rows = corpus.index_select(0, safe).view(Q, R, d)
+        return torch.bmm(rows, q.unsqueeze(2))
+
+    k2 = ratios(dict(
+        ms=cuda_ms(lambda: fiber_expand.fiber_expand_walk(q, corpus, ids, bm),
+                   50, flush),
+        plain_ms=cuda_ms(lambda: ref.fiber_expand_walk(q, corpus, ids, bm),
+                         20, flush),
+        library_ms=cuda_ms(k2_library, 20, flush), **k2_work(q, ids, d)))
+    q3, corpus3, bm3, k = seen["masked_cosine_topk"]
+    mask = unpack_bits(bm3, corpus3.shape[0])
+
+    def k3_library():
+        return torch.topk(torch.where(mask, q3 @ corpus3.T, float("-inf")), k)
+
+    k3 = ratios(dict(
+        ms=cuda_ms(lambda: mct.masked_cosine_topk(q3, corpus3, bm3, k), 20,
+                   flush),
+        plain_ms=cuda_ms(lambda: ref.masked_cosine_topk(q3, corpus3, bm3, k),
+                         5, flush),
+        library_ms=cuda_ms(k3_library, 5, flush), k=k,
+        **k3_work(q3, mask, bm3, k, d)))
+    del flush
+    torch.cuda.synchronize()
+    build.LAUNCHES.clear()
+    build.LAUNCHES.update(saved)
+    rec = {"K2": dict(Q=Q, R=R, n=corpus.shape[0], d=d, **k2),
+           "K3": dict(Q=q3.shape[0], n=corpus3.shape[0], d=d, **k3)}
+    log(label.split("/")[0] + "_kernel_times", batch=label,
+        **{f"{name}_{key}": v for name, r in rec.items()
+           for key, v in r.items()})
+    return rec
+
+
+# the rag path: SmolLM-135M at full width encodes a corpus and the prompts
+# that retrieve from it (examples/rag_serve.py --full, at serving scale)
+RAG_ARCH = "smollm-135m"
+RAG_DOCS = 65_536     # documents encoded and indexed
+RAG_LEN = 64          # tokens a document and a prompt
+RAG_BATCH = 256       # documents an encode call
+RAG_FIELDS = 6        # categorical fields of RAG_CODES codes each
+RAG_CODES = 8
+RAG_Q = 64            # prompts a retrieve_batch
+RAG_SEQ = 8           # prompts through the sequential retrieve
+RAG_TIMED = 5         # timed turns of retrieve_batch vs encode + query
+RAG_CPU_DOCS = 256    # documents also encoded on the host, for the check
+RAG_COS = 0.999       # least cosine of a card embedding to the host's
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 32, 16   # launch/serve.py's defaults
+
+
+def rag_predicates(rng, q: int):
+    """One conjunctive predicate per prompt over the RAG fields, a third
+    each at selectivity 0.25 (one field, 2 codes), 0.047 (3 codes and 1)
+    and 0.0098 (1, 1 and 5 codes)."""
+    from repro_torch.core.types import FilterPredicate
+    widths = [(2,), (3, 1), (1, 1, 5)]
+    out = []
+    for i in range(q):
+        fields = rng.permutation(RAG_FIELDS)
+        out.append(FilterPredicate.make({
+            int(f): rng.choice(RAG_CODES, w, replace=False).tolist()
+            for f, w in zip(fields, widths[i * 3 // q])}))
+    return out
+
+
+def rag_path(dev, card, log) -> dict:
+    """The LM retrieval bridge at SmolLM-135M's full width (30 layers, d
+    576, 9 heads / 3 KV, vocab 49,152; random weights from ``init_params``
+    with seed 0): RAG_DOCS documents from ``TokenPipeline`` encoded on the
+    card in batches of RAG_BATCH, RAG_FIELDS categorical fields attached,
+    the index built on the host at the ``FnsConfig`` defaults and served
+    by ``RetrievalService(device="cuda")`` at k=10; then
+    ``EncodedRetriever.retrieve_batch`` on RAG_Q prompts (one conjunctive
+    predicate each, selectivities ≈ 0.25 / 0.05 / 0.01; its first K1-K3
+    calls held to their plain versions and K2/K3 timed on them), timed
+    RAG_TIMED times in turns with ``embed_tokens`` + ``query_batch`` of
+    the same prompts (medians logged), whose ids it must equal in every
+    turn; the ids must pass their predicates and be scored against exact filtered
+    top-k; ``retrieve`` (the sequential host path) on RAG_SEQ prompts;
+    RAG_CPU_DOCS card embeddings held to the port on the host with the
+    same weights (cosine ≥ RAG_COS); ``ServeEngine.generate`` greedy at
+    batch 4, prompt 32, 16 new tokens, equal across two calls, its first
+    token the card prefill's argmax. Returns the path's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import FnsConfig, WalkConfig
+    from repro_torch.core.search import SearchParams
+    from repro_torch.core.types import Dataset, Query
+    from repro_torch.data.ground_truth import recall_at_k
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import (ShardEnv, encode,
+                                                init_params, on_device,
+                                                prefill)
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.retrieval import EncodedRetriever, RetrievalService
+
+    t_path = time.time()
+    build.LAUNCHES.clear()
+    cfg, env = get_config(RAG_ARCH), ShardEnv(None)
+    params = init_params(cfg, seed=0, device=dev)
+    n_params = sum(p.numel() for p in params.parameters())
+
+    # documents: TokenPipeline batches (steps 0.. of seed 0) on the card
+    pipe = TokenPipeline(cfg.vocab_size, RAG_BATCH, RAG_LEN, seed=0)
+    docs = np.concatenate([pipe.get_batch(i)["tokens"]
+                           for i in range(RAG_DOCS // RAG_BATCH)])
+    docs_dev = torch.from_numpy(docs).to(dev)
+
+    def enc(toks):
+        return encode(params, {"tokens": toks}, cfg, env)
+
+    enc(docs_dev[:RAG_BATCH])  # warm-up (cuBLAS handles, allocator)
+    torch.cuda.synchronize()
+    t = time.time()
+    vectors = torch.cat([enc(docs_dev[lo:lo + RAG_BATCH])
+                         for lo in range(0, RAG_DOCS, RAG_BATCH)]).cpu()
+    enc_s = time.time() - t
+    vectors = vectors.numpy()
+    check(vectors.shape == (RAG_DOCS, cfg.d_model)
+          and bool(np.isfinite(vectors).all()), "rag: encode output")
+    check(bool(np.allclose(np.linalg.norm(vectors, axis=1), 1.0, atol=1e-5)),
+          "rag: embeddings are not unit rows")
+    log("rag_encode", docs=RAG_DOCS, tokens=RAG_LEN, batch=RAG_BATCH,
+        s=enc_s, docs_per_s=RAG_DOCS / enc_s, params=n_params,
+        layers=cfg.n_layers, d=cfg.d_model, card=card)
+
+    # the same weights on the host: card embeddings held to the port's CPU
+    t = time.time()
+    host = on_device(params, "cpu")
+    want = encode(host, {"tokens": docs[:RAG_CPU_DOCS]}, cfg, env).numpy()
+    cos = (want * vectors[:RAG_CPU_DOCS]).sum(axis=1)
+    log("rag_host_encode", docs=RAG_CPU_DOCS, s=time.time() - t,
+        min_cos=float(cos.min()), mean_cos=float(cos.mean()))
+    check(float(cos.min()) >= RAG_COS, f"rag: card vs host embedding cosine "
+                                       f"{float(cos.min()):.5f} < {RAG_COS}")
+    del host
+
+    rng = np.random.default_rng(0)
+    meta = rng.integers(0, RAG_CODES, (RAG_DOCS, RAG_FIELDS)).astype(np.int32)
+    ds = Dataset(vectors, meta, [f"f{i}" for i in range(RAG_FIELDS)],
+                 [RAG_CODES] * RAG_FIELDS)
+    t = time.time()
+    svc = RetrievalService.build(ds, config=FnsConfig(walk=WalkConfig(k=K)),
+                                 params=SearchParams(k=K), device=dev)
+    build_s = time.time() - t
+    t = time.time()
+    svc.engine()
+    torch.cuda.synchronize()
+    log("rag_host_build", s=build_s, engine_s=time.time() - t, n=RAG_DOCS,
+        d=cfg.d_model, graph_width=svc.index.graph.r_pad,
+        clusters=svc.index.atlas.n_clusters, card=card)
+
+    retr = EncodedRetriever(cfg, env, params, svc)
+    prompts = TokenPipeline(cfg.vocab_size, RAG_Q, RAG_LEN,
+                            seed=1).get_batch(0)["tokens"]
+    preds = rag_predicates(rng, RAG_Q)
+    with FirstCalls() as seen:  # warm-up, its kernel calls checked
+        retr.retrieve_batch(prompts, preds)
+    torch.cuda.synchronize()
+    check(set(seen) == set(SEARCH_KERNELS),
+          f"rag: kernels never called: {set(SEARCH_KERNELS) - set(seen)}")
+    check_first_calls(seen, "rag/q64", log)
+    times = time_first_calls(seen, "rag/q64", dev, log)
+    del seen
+
+    # retrieve_batch against embed_tokens + query_batch, in turns (A B B A
+    # ...), so the host-bound search's drift lands on both sides alike;
+    # each turn's two answers must be the same ids
+    incl, embed, excl = [], [], []
+    for rep in range(RAG_TIMED):
+        for whole in ((True, False) if rep % 2 == 0 else (False, True)):
+            t = time.time()
+            if whole:
+                ids, stats = retr.retrieve_batch(prompts, preds)
+                incl.append((time.time() - t) * 1e3)
+                continue
+            q_vecs = retr.embed_tokens(prompts)
+            embed.append((time.time() - t) * 1e3)
+            t = time.time()
+            ids_q, _ = svc.query_batch(q_vecs, preds)
+            excl.append((time.time() - t) * 1e3)
+        check(all(np.array_equal(a, b) for a, b in zip(ids, ids_q)),
+              "rag: retrieve_batch ids differ from query_batch on "
+              "embed_tokens")
+    queries = [Query(vector=v, predicate=p) for v, p in zip(q_vecs, preds)]
+    gt, masks = ground_truth(ds, queries, dev)
+    check_results("rag/q64", ids, masks)
+    sels = masks.mean(axis=1)
+    recs = np.array([recall_at_k(r, g) for r, g in zip(ids, gt)])
+    thirds = np.arange(RAG_Q) * 3 // RAG_Q
+    log("rag_retrieve_batch", Q=RAG_Q, runs=RAG_TIMED,
+        ms_incl_encode=float(np.median(incl)),
+        ms_excl_encode=float(np.median(excl)),
+        embed_ms=float(np.median(embed)), ms_incl_encode_runs=incl,
+        ms_excl_encode_runs=excl, embed_ms_runs=embed,
+        recall_at_10=float(recs.mean()),
+        recall_by_sel=[float(recs[thirds == i].mean()) for i in range(3)],
+        sel_by_third=[float(sels[thirds == i].mean()) for i in range(3)],
+        walks=float(stats["walks"].mean()), syncs=stats["syncs"], card=card)
+
+    # the sequential host path: RAG_SEQ prompts under the first predicate
+    t = time.time()
+    seq = retr.retrieve(prompts[:RAG_SEQ], preds[0])
+    seq_ms = (time.time() - t) * 1e3
+    check_results("rag/sequential", [r[0] for r in seq],
+                  [masks[0]] * RAG_SEQ)
+    gt0, _ = ground_truth(ds, [Query(vector=v, predicate=preds[0])
+                               for v in q_vecs[:RAG_SEQ]], dev)
+    log("rag_retrieve_sequential", Q=RAG_SEQ, ms_per_query=seq_ms / RAG_SEQ,
+        recall_at_10=float(np.mean([recall_at_k(r[0], g)
+                                    for r, g in zip(seq, gt0)])),
+        selectivity=float(masks[0].mean()), device="host", card=card)
+    del svc, retr
+    torch.cuda.empty_cache()
+
+    # generation: launch/serve.py's defaults, greedy
+    eng = ServeEngine(cfg, env, params, device=dev)
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT)).astype(np.int32)
+    first = eng.generate(toks, max_new=GEN_NEW)  # warm-up
+    torch.cuda.synchronize()
+    t = time.time()
+    out = eng.generate(toks, max_new=GEN_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.time() - t
+    logits, _ = prefill(params, {"tokens": toks}, cfg, env)
+    check(out.shape == (GEN_BATCH, GEN_NEW) and torch.equal(first, out),
+          "rag: greedy generate differs between two calls")
+    check(bool((out < cfg.vocab_size).all()), "rag: generated a pad id")
+    check(torch.equal(out[:, 0], logits[:, -1].argmax(dim=-1).to(out.dtype)),
+          "rag: first generated token is not the prefill's argmax")
+    log("rag_generate", batch=GEN_BATCH, prompt=GEN_PROMPT, new=GEN_NEW,
+        s=gen_s, tokens_per_s=GEN_BATCH * GEN_NEW / gen_s, card=card)
+    launches = path_launches("rag", SEARCH_KERNELS, log)
+    log("rag_path", s=time.time() - t_path, kernel_times=times)
+    return launches
+
+
 def run(report_path: str | None) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1575,6 +1866,9 @@ def run(report_path: str | None) -> int:
     torch.cuda.empty_cache()
     by_path["serve"] = serve_path(ds, index, held, batches, card_res, dev,
                                   card, log)
+    del ds, index, held, batches, card_res
+    torch.cuda.empty_cache()
+    by_path["rag"] = rag_path(dev, card, log)
     # each kernel's launches come from the path it belongs to: K1-K3 from
     # the search, K4 and K5 from the parity gate
     for name, rec in records.items():

@@ -1,0 +1,8 @@
+"""Minitron-8B: width-pruned Nemotron-4 [arXiv:2407.14679]."""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="minitron-8b", family="dense",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, d_ff=16384,
+    vocab_size=256000, head_dim=128,
+)

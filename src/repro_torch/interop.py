@@ -1,11 +1,13 @@
 """Carry state across from the JAX reference package to the port.
 
 Everything crosses as numpy arrays, read off the reference objects by
-attribute (duck typing), so this module imports neither ``jax`` nor the
-reference package. Packed bitmaps cross as numpy ``uint32`` views of the
+attribute or key (duck typing), so this module imports neither ``jax``
+nor the reference package. Packed bitmaps cross as numpy ``uint32`` views of the
 port's int32 words (same bits, see ``core/batched/bitmap.py``).
 """
 from __future__ import annotations
+
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
@@ -20,6 +22,9 @@ from repro_torch.core.device_atlas import (DeviceAtlas, resolve_device,
 from repro_torch.core.graph import Graph
 from repro_torch.core.search import FiberIndex
 from repro_torch.core.types import FilterPredicate, Query
+
+if TYPE_CHECKING:
+    from repro_torch.models.transformer import Transformer
 
 
 def _np(x, dtype=None) -> np.ndarray:
@@ -159,3 +164,30 @@ def sharded_index_from_reference(ref_sidx, device=None) -> ShardedIndex:
         vocab_sizes=(None if ref_sidx.vocab_sizes is None
                      else tuple(int(v) for v in ref_sidx.vocab_sizes)),
         insert_state=None if st is None else insert_state_from_reference(st))
+
+
+def params_from_reference(ref_params, cfg, device=None) -> Transformer:
+    """The reference's LM parameter pytree (leaves stacked under a
+    leading L dim in ``layers``) as the port's ``Transformer`` for
+    ``cfg``, fp32 on ``device`` (None means CUDA): layer l of the port
+    holds slice l of every stacked leaf."""
+    # here, not at the top: the search-side state above needs no LM
+    from repro_torch.models.transformer import Transformer
+    dev = resolve_device(device)
+
+    def leaves(tree):
+        return {k: leaves(v) if isinstance(v, dict) else _np(v, np.float32)
+                for k, v in tree.items()}
+
+    def t(x):
+        return torch.from_numpy(x).to(dev)
+
+    def layer(tree, li):
+        return {k: layer(v, li) if isinstance(v, dict) else t(v[li])
+                for k, v in tree.items()}
+
+    stacked = leaves(ref_params["layers"])
+    tree = {k: t(_np(v, np.float32)) for k, v in ref_params.items()
+            if k != "layers"}
+    tree["layers"] = [layer(stacked, li) for li in range(cfg.n_layers)]
+    return Transformer(cfg, tree)

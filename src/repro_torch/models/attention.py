@@ -1,0 +1,104 @@
+"""Attention: chunked (flash-style) softmax for prefill and encode, and
+plain decode attention over a cache.
+
+The chunked form never materializes the (S, S) score matrix: a loop over
+query blocks and an inner loop over KV blocks carry running (max, sum,
+acc), the standard online-softmax recurrence. The reference computes both
+functions in plain jnp outside any Pallas kernel; the port computes the
+same function in plain torch ops (not ``scaled_dot_product_attention``,
+whose blocking and rounding are its own). ``flash_decode_sharded`` waits
+for the multi-GPU port.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _block_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+                window: int) -> torch.Tensor:
+    """(qc, kc) bool mask. ``window`` <= 0 means unbounded lookback (full
+    attention)."""
+    diff = q_pos[:, None] - k_pos[None, :]
+    m = diff < (window if window > 0 else 1 << 30)
+    if causal:
+        m &= diff >= 0
+    return m
+
+
+def _scaled(s: torch.Tensor, hd: int) -> torch.Tensor:
+    """Scores times hd**-0.5 in the scores' dtype, the scale rounded to
+    that dtype first, as jnp does with a Python scalar (torch would keep
+    it in fp32); then fp32 for the softmax."""
+    return (s * torch.tensor(hd ** -0.5, dtype=s.dtype)).float()
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int = 0,
+                      q_chunk: int = 512, kv_chunk: int = 1024,
+                      q_offset: int = 0) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd); GQA via H % KV == 0
+    (query head h reads KV head h // G).
+
+    ``q_offset``: absolute position of q[0] (for prefill continuation).
+    Returns (B, Sq, H, hd).
+    """
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    q_chunk = min(q_chunk, Sq)
+    kv_chunk = min(kv_chunk, Sk)
+    if Sq % q_chunk or Sk % kv_chunk:
+        raise ValueError(f"chunked_attention: Sq={Sq} and Sk={Sk} must be "
+                         f"multiples of their chunks ({q_chunk}, "
+                         f"{kv_chunk})")
+    dev = q.device
+    qg = q.reshape(B, Sq, KV, G, hd)
+    out = torch.empty_like(q).reshape(B, Sq, KV, G, hd)
+    for q0 in range(0, Sq, q_chunk):
+        qblk = qg[:, q0:q0 + q_chunk]                       # (B,qc,KV,G,hd)
+        q_pos = q_offset + q0 + torch.arange(q_chunk, device=dev)
+        m = torch.full((B, KV, G, q_chunk), NEG_INF, device=dev)
+        l = torch.zeros((B, KV, G, q_chunk), device=dev)
+        acc = torch.zeros((B, KV, G, q_chunk, hd), device=dev)
+        for k0 in range(0, Sk, kv_chunk):
+            kblk = k[:, k0:k0 + kv_chunk]                   # (B,kc,KV,hd)
+            vblk = v[:, k0:k0 + kv_chunk]
+            k_pos = k0 + torch.arange(kv_chunk, device=dev)
+            s = _scaled(torch.einsum("bqkgh,bckh->bkgqc", qblk, kblk), hd)
+            mask = _block_mask(q_pos, k_pos, causal, window)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkgqc,bckh->bkgqh", p.to(vblk.dtype), vblk)
+            acc = acc * corr[..., None] + pv.float()
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        # (B, KV, G, qc, hd) -> (B, qc, KV, G, hd)
+        out[:, q0:q0 + q_chunk] = o.permute(0, 3, 1, 2, 4).to(q.dtype)
+    return out.reshape(B, Sq, H, hd)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len: int, *,
+                     window: int = 0) -> torch.Tensor:
+    """Single-step decode. q: (B, 1, H, hd); caches: (B, S, KV, hd).
+
+    ``cache_len``: count of valid positions (new token included).
+    """
+    B, _, H, hd = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    qr = q.reshape(B, KV, G, hd)
+    s = _scaled(torch.einsum("bkgh,bskh->bkgs", qr, k_cache), hd)
+    pos = torch.arange(S, device=q.device)
+    valid = pos < cache_len
+    if window > 0:
+        valid &= pos >= cache_len - window
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskh->bkgh", p.to(v_cache.dtype), v_cache)
+    return out.reshape(B, 1, H, hd)

@@ -1,0 +1,53 @@
+"""Batched generation: prefill + greedy/temperature decode loop."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.device_atlas import resolve_device
+from repro_torch.models.transformer import (ShardEnv, Transformer,
+                                            decode_step, on_device, prefill)
+
+
+class ServeEngine:
+    """Generation with a dense/vlm LM on ``device`` (None means CUDA),
+    with ``params`` there or a copy of them (the caller's module does not
+    move)."""
+
+    def __init__(self, cfg: ArchConfig, env: ShardEnv, params: Transformer,
+                 device=None):
+        self.cfg, self.env = cfg, env
+        self.device = resolve_device(device)
+        self.params = on_device(params, self.device)
+
+    def generate(self, tokens, max_new: int = 32, temperature: float = 0.0,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+        """tokens: (B, S) int prompt. Returns (B, max_new) generated ids
+        (int32, on the engine's device): greedy (the first maximum, as
+        ``jnp.argmax``) at temperature 0, else sampled from
+        softmax(logits / temperature) with ``generator``.
+
+        The prefill leaves room for the new tokens, so each decode step
+        attends over the whole prompt (see ``models.transformer``); the
+        last token needs no decode step after it."""
+        if temperature > 0.0 and generator is None:
+            raise ValueError("generate: sampling needs a torch.Generator")
+        tokens = torch.as_tensor(tokens, device=self.device)
+        logits, cache = prefill(self.params, {"tokens": tokens}, self.cfg,
+                                self.env,
+                                cache_len=tokens.shape[1] + max_new - 1)
+        out = []
+        for i in range(max_new):
+            last = logits[:, -1]
+            if temperature > 0.0:
+                probs = torch.softmax(last / temperature, dim=-1)
+                nxt = torch.multinomial(probs, 1, generator=generator)
+            else:
+                nxt = torch.argmax(last, dim=-1, keepdim=True)
+            nxt = nxt.to(torch.int32)
+            out.append(nxt)
+            if i + 1 < max_new:
+                logits, cache = decode_step(self.params, cache,
+                                            {"tokens": nxt}, self.cfg,
+                                            self.env)
+        return torch.cat(out, dim=1)

@@ -4,12 +4,12 @@ over unit vectors, sequentially on the host (``query``) or in batches on
 the device (``query_batch``), with live ingest/delete and crash-consistent
 durability (DESIGN.md §4, §9, §10, §12).
 
-The port's service differs from the reference's in three ways: it takes
+The port's service differs from the reference's in two ways: it takes
 a ``device`` (None means CUDA, and constructing it raises where there is
-none) that every engine it builds or recovers receives; its ``mesh`` must
-be None (every shard serves from the one device; the multi-device
-engines are not ported); and the LM bridge (``EncodedRetriever``) is not
-here, because the port has no language model yet.
+none) that every engine it builds or recovers receives, and that
+``EncodedRetriever`` encodes on; and its ``mesh`` must be None (every
+shard serves from the one device; the multi-device engines are not
+ported).
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.atlas import AnchorAtlas
 from repro_torch.core.batched.engine import (BatchedEngine, BatchedParams,
                                              _compile_query_dnf)
@@ -29,6 +30,8 @@ from repro_torch.core.graph import build_alpha_knn
 from repro_torch.core.predicate import FilterExpr
 from repro_torch.core.search import FiberIndex, SearchParams, search
 from repro_torch.core.types import Dataset, FilterPredicate, Query, normalize
+from repro_torch.models.transformer import (ShardEnv, Transformer, encode,
+                                            on_device)
 
 # singleton (and any sub-minimum) arrivals pad up to this bucket, so
 # every small arrival runs at one of a few batch shapes (value originates
@@ -685,3 +688,33 @@ class RetrievalService:
         stats["sequential_index_stale_rows"] = (
             stats["inserted_rows"] if self.index is not None else 0)
         return stats
+
+
+class EncodedRetriever:
+    """LM encoder + RetrievalService: the end-to-end RAG serving path.
+    The encoder runs where the service does (``service.device``), with
+    ``params`` there or a copy of them (the caller's module does not
+    move)."""
+
+    def __init__(self, cfg: ArchConfig, env: ShardEnv, params: Transformer,
+                 service: RetrievalService):
+        self.cfg, self.env = cfg, env
+        self.params = on_device(params, service.device)
+        self.service = service
+
+    def embed_tokens(self, tokens) -> np.ndarray:
+        """(B, S) int prompts -> (B, d) unit fp32 embeddings on the host."""
+        return encode(self.params, {"tokens": tokens}, self.cfg,
+                      self.env).cpu().numpy()
+
+    def retrieve(self, tokens, predicate: FilterPredicate, seed: int = 0):
+        """Encode, then one sequential host query per prompt."""
+        vecs = self.embed_tokens(tokens)
+        return [self.service.query(v, predicate, seed=seed + i)
+                for i, v in enumerate(vecs)]
+
+    def retrieve_batch(self, tokens, predicates):
+        """Encode + batched lockstep retrieval: one predicate per prompt
+        row, the whole batch one ``query_batch``."""
+        vecs = self.embed_tokens(tokens)
+        return self.service.query_batch(vecs, list(predicates))
