@@ -14,8 +14,8 @@ mask at k=32) and also at ragged shapes (K1 in its three forms across its
 tile and query-group edges; K4 across its words and grid, at odd and even
 F, v_cap 32 to 1024 and with every clause inactive; K2, K3 and K5 at
 n % 32 != 0 and d % 4 != 0; K5 with no valid id, no pass bit and every
-pass bit), and then drives six paths, each with the launch counts cleared
-just before it and read just after:
+pass bit), and then drives seven paths, each with the launch counts
+cleared just before it and read just after:
 
 * the kernel/plain-version parity gate (``kernels.parity.parity_gate``),
   the path of K4 ``filter_eval`` and K5 ``fiber_expand``;
@@ -61,7 +61,23 @@ just before it and read just after:
   top-k; ``retrieve`` answers 8 prompts on the host; 256 card embeddings
   are held to the port's on the host with the same weights (cosine);
   ``ServeEngine.generate`` decodes 16 tokens greedily for 4 prompts of
-  32, the same tokens in two calls, the first the card prefill's argmax.
+  32, the same tokens in two calls, the first the card prefill's argmax;
+* the moe, hybrid and ssm LM families (``lm_families_path``), one at a
+  time with random weights from a seed: dbrx-132b at its published
+  widths with 4 of its 40 layers (d 6,144, 48 / 8 heads, 16 experts top
+  4, vocab 100,352; 57 GB of fp32 masters), hymba-1.5b and rwkv6-3b
+  whole. Each prefills 4 prompts of 32 tokens (finite logits), generates
+  16 tokens greedily (the same in two calls, the first the prefill's
+  argmax), holds 4 decode steps to its prefill over the longer sequence
+  in bf16 and in fp32 (dbrx at a dropless capacity factor), and holds
+  its card prefill of one 16-token prompt to the port's on the host with
+  the same weights in fp32 (dbrx at one layer; bf16 and its routing
+  agreement logged). Hymba then encodes 16,384 documents of 64 tokens on
+  the card, served by ``RetrievalService(device="cuda")``, and
+  ``EncodedRetriever.retrieve_batch`` answers 64 prompts through K1-K3
+  at d = 1,600 (first calls held to their plain versions, K2/K3 timed),
+  with the ids of ``query_batch`` on ``embed_tokens``, every id passing
+  its predicate, recall against exact filtered top-k.
 
 Prints the kernels' timings as one JSON line (each record with its
 share of its bound and its time against one PyTorch call, both from this
@@ -1644,6 +1660,81 @@ def rag_predicates(rng, q: int):
     return out
 
 
+def encode_corpus(label, cfg, params, env, n_docs: int, batch: int, dev):
+    """``n_docs`` documents of RAG_LEN tokens from ``TokenPipeline``
+    (steps 0.. of seed 0, ``batch`` a step) encoded on the card in
+    batches of ``batch``, after one warm-up batch (cuBLAS handles, the
+    allocator). Returns the tokens, the (n_docs, d) fp32 rows on the host
+    and the seconds the encode took; fails on a non-finite or non-unit
+    row."""
+    import numpy as np
+    import torch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.transformer import encode
+    pipe = TokenPipeline(cfg.vocab_size, batch, RAG_LEN, seed=0)
+    docs = np.concatenate([pipe.get_batch(i)["tokens"]
+                           for i in range(n_docs // batch)])
+    docs_dev = torch.from_numpy(docs).to(dev)
+
+    def enc(toks):
+        return encode(params, {"tokens": toks}, cfg, env)
+
+    enc(docs_dev[:batch])
+    torch.cuda.synchronize()
+    t = time.time()
+    vectors = torch.cat([enc(docs_dev[lo:lo + batch])
+                         for lo in range(0, n_docs, batch)]).cpu().numpy()
+    enc_s = time.time() - t
+    check(vectors.shape == (n_docs, cfg.d_model)
+          and bool(np.isfinite(vectors).all()), f"{label}: encode output")
+    check(bool(np.allclose(np.linalg.norm(vectors, axis=1), 1.0, atol=1e-5)),
+          f"{label}: embeddings are not unit rows")
+    return docs, vectors, enc_s
+
+
+def serve_corpus(label, vectors, rng, dev, card, log):
+    """RAG_FIELDS categorical fields of RAG_CODES codes drawn from
+    ``rng`` for the rows of ``vectors``, the index built on the host at
+    the ``FnsConfig`` defaults and served by ``RetrievalService`` on the
+    card at k=K, its engine placed there. Returns (dataset, service)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.config import FnsConfig, WalkConfig
+    from repro_torch.core.search import SearchParams
+    from repro_torch.core.types import Dataset
+    from repro_torch.serve.retrieval import RetrievalService
+    n, d = vectors.shape
+    meta = rng.integers(0, RAG_CODES, (n, RAG_FIELDS)).astype(np.int32)
+    ds = Dataset(vectors, meta, [f"f{i}" for i in range(RAG_FIELDS)],
+                 [RAG_CODES] * RAG_FIELDS)
+    t = time.time()
+    svc = RetrievalService.build(ds, config=FnsConfig(walk=WalkConfig(k=K)),
+                                 params=SearchParams(k=K), device=dev)
+    build_s = time.time() - t
+    t = time.time()
+    svc.engine()
+    torch.cuda.synchronize()
+    log(f"{label}_host_build", s=build_s, engine_s=time.time() - t, n=n,
+        d=d, graph_width=svc.index.graph.r_pad,
+        clusters=svc.index.atlas.n_clusters, card=card)
+    return ds, svc
+
+
+def first_batch(label, retr, prompts, preds, dev, log) -> dict:
+    """``retr.retrieve_batch`` once as a warm-up: its first K1-K3 calls
+    held to their plain versions (``check_first_calls``) and K2/K3 timed
+    on them (``time_first_calls``, whose record it returns)."""
+    import torch
+    with FirstCalls() as seen:
+        retr.retrieve_batch(prompts, preds)
+    torch.cuda.synchronize()
+    path = label.split("/")[0]
+    check(set(seen) == set(SEARCH_KERNELS),
+          f"{path}: kernels never called: {set(SEARCH_KERNELS) - set(seen)}")
+    check_first_calls(seen, label, log)
+    return time_first_calls(seen, label, dev, log)
+
+
 def rag_path(dev, card, log) -> dict:
     """The LM retrieval bridge at SmolLM-135M's full width (30 layers, d
     576, 9 heads / 3 KV, vocab 49,152; random weights from ``init_params``
@@ -1665,9 +1756,7 @@ def rag_path(dev, card, log) -> dict:
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.config import FnsConfig, WalkConfig
-    from repro_torch.core.search import SearchParams
-    from repro_torch.core.types import Dataset, Query
+    from repro_torch.core.types import Query
     from repro_torch.data.ground_truth import recall_at_k
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.kernels import build
@@ -1675,7 +1764,7 @@ def rag_path(dev, card, log) -> dict:
                                                 init_params, on_device,
                                                 prefill)
     from repro_torch.serve.engine import ServeEngine
-    from repro_torch.serve.retrieval import EncodedRetriever, RetrievalService
+    from repro_torch.serve.retrieval import EncodedRetriever
 
     t_path = time.time()
     build.LAUNCHES.clear()
@@ -1683,26 +1772,8 @@ def rag_path(dev, card, log) -> dict:
     params = init_params(cfg, seed=0, device=dev)
     n_params = sum(p.numel() for p in params.parameters())
 
-    # documents: TokenPipeline batches (steps 0.. of seed 0) on the card
-    pipe = TokenPipeline(cfg.vocab_size, RAG_BATCH, RAG_LEN, seed=0)
-    docs = np.concatenate([pipe.get_batch(i)["tokens"]
-                           for i in range(RAG_DOCS // RAG_BATCH)])
-    docs_dev = torch.from_numpy(docs).to(dev)
-
-    def enc(toks):
-        return encode(params, {"tokens": toks}, cfg, env)
-
-    enc(docs_dev[:RAG_BATCH])  # warm-up (cuBLAS handles, allocator)
-    torch.cuda.synchronize()
-    t = time.time()
-    vectors = torch.cat([enc(docs_dev[lo:lo + RAG_BATCH])
-                         for lo in range(0, RAG_DOCS, RAG_BATCH)]).cpu()
-    enc_s = time.time() - t
-    vectors = vectors.numpy()
-    check(vectors.shape == (RAG_DOCS, cfg.d_model)
-          and bool(np.isfinite(vectors).all()), "rag: encode output")
-    check(bool(np.allclose(np.linalg.norm(vectors, axis=1), 1.0, atol=1e-5)),
-          "rag: embeddings are not unit rows")
+    docs, vectors, enc_s = encode_corpus("rag", cfg, params, env, RAG_DOCS,
+                                         RAG_BATCH, dev)
     log("rag_encode", docs=RAG_DOCS, tokens=RAG_LEN, batch=RAG_BATCH,
         s=enc_s, docs_per_s=RAG_DOCS / enc_s, params=n_params,
         layers=cfg.n_layers, d=cfg.d_model, card=card)
@@ -1719,32 +1790,13 @@ def rag_path(dev, card, log) -> dict:
     del host
 
     rng = np.random.default_rng(0)
-    meta = rng.integers(0, RAG_CODES, (RAG_DOCS, RAG_FIELDS)).astype(np.int32)
-    ds = Dataset(vectors, meta, [f"f{i}" for i in range(RAG_FIELDS)],
-                 [RAG_CODES] * RAG_FIELDS)
-    t = time.time()
-    svc = RetrievalService.build(ds, config=FnsConfig(walk=WalkConfig(k=K)),
-                                 params=SearchParams(k=K), device=dev)
-    build_s = time.time() - t
-    t = time.time()
-    svc.engine()
-    torch.cuda.synchronize()
-    log("rag_host_build", s=build_s, engine_s=time.time() - t, n=RAG_DOCS,
-        d=cfg.d_model, graph_width=svc.index.graph.r_pad,
-        clusters=svc.index.atlas.n_clusters, card=card)
+    ds, svc = serve_corpus("rag", vectors, rng, dev, card, log)
 
     retr = EncodedRetriever(cfg, env, params, svc)
     prompts = TokenPipeline(cfg.vocab_size, RAG_Q, RAG_LEN,
                             seed=1).get_batch(0)["tokens"]
     preds = rag_predicates(rng, RAG_Q)
-    with FirstCalls() as seen:  # warm-up, its kernel calls checked
-        retr.retrieve_batch(prompts, preds)
-    torch.cuda.synchronize()
-    check(set(seen) == set(SEARCH_KERNELS),
-          f"rag: kernels never called: {set(SEARCH_KERNELS) - set(seen)}")
-    check_first_calls(seen, "rag/q64", log)
-    times = time_first_calls(seen, "rag/q64", dev, log)
-    del seen
+    times = first_batch("rag/q64", retr, prompts, preds, dev, log)
 
     # retrieve_batch against embed_tokens + query_batch, in turns (A B B A
     # ...), so the host-bound search's drift lands on both sides alike;
@@ -1819,6 +1871,396 @@ def rag_path(dev, card, log) -> dict:
     return launches
 
 
+# the lm_families path: the moe, hybrid and ssm LMs at their published
+# widths, and hymba's embeddings feeding the fused filtered search
+LM_FAMILIES = (("dbrx-132b", 4),      # 4 of 40 layers: ~57 GB of fp32
+               ("hymba-1.5b", None),  # masters fit the card's 80 GB
+               ("rwkv6-3b", None))
+FAM_DECODE = 4          # decode steps held to the card's longer prefill
+FAM_HOST_LEN = 16       # tokens of the prompt prefilled on card and host
+FAM_HOST_LAYERS = {"dbrx-132b": 1}   # its host copy at one layer
+# Logits held within these shares of the largest logit, for each family:
+# bf16 decode vs the longer prefill, bf16 card vs host prefill, and fp32
+# both. Each is about twice the largest reading on the H100 (PERF.md
+# section 6). A decode step and a longer prefill (or the card and the
+# host) round differently, and deep random-weight models amplify it:
+# beside these the path logs the card's own bf16 prefill against its fp32
+# one (``bf16_vs_fp32_rel_err``) and how far one fp32 ulp on the prompt's
+# embeddings moves the fp32 logits (``fp32_ulp_rel_err``). rwkv6's 32
+# layers amplify most, in fp32 too.
+FAM_TOL = {"dbrx-132b": dict(decode=0.035, host=0.015, fp32=1e-3),
+           "hymba-1.5b": dict(decode=0.11, host=0.10, fp32=1e-3),
+           "rwkv6-3b": dict(decode=0.12, host=0.45, fp32=6e-3)}
+HYMBA_DOCS = 16_384     # documents hymba encodes and the service indexes
+HYMBA_BATCH = 128       # documents an encode call
+
+
+def logit_rel_err(want, got) -> float:
+    """Max abs difference of two (B, 1, V_pad) logits over the real
+    vocabulary (pad ids are -1e30 in both), over the largest real logit
+    magnitude of ``want``."""
+    import torch
+    want, got = want.float().cpu(), got.float().cpu()
+    real = want > -1e29
+    check(torch.equal(real, got > -1e29), "logits: pad ids differ")
+    return float((want - got)[real].abs().max() / want[real].abs().max())
+
+
+def kernel_count(prof) -> int:
+    """Kernels a ``torch.profiler`` trace launched on the card."""
+    from torch.autograd import DeviceType
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+class Fp32:
+    """While open, the port's LM passes compute in fp32: ``CDT`` set to
+    float32 in ``models.common`` and ``models.transformer``, as the CPU
+    parity tests run it (products then fp32 on the card too: TF32 is
+    off, ``repro_torch/__init__.py``)."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import common, transformer
+        self.saved = common.CDT, transformer.CDT
+        common.CDT = transformer.CDT = torch.float32
+
+    def __exit__(self, *exc):
+        from repro_torch.models import common, transformer
+        common.CDT, transformer.CDT = self.saved
+
+
+class Routes:
+    """While open, ``models.moe._route`` keeps the expert ids of every
+    call (where they were made, in call order; no copy, so no kernel) and
+    passes each call through."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.real, self.ids = moe._route, []
+
+        def route(x, w, dims):
+            ids, weights = self.real(x, w, dims)
+            self.ids.append(ids)
+            return ids, weights
+
+        moe._route = route
+        return self.ids
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._route = self.real
+
+
+def same_routes(r_dec, r_full, B: int):
+    """(B,) bool: the rows whose decode step chose, in every MoE layer, the
+    experts the longer prefill chose for its last token (all True where no
+    layer routes)."""
+    import torch
+    same = torch.ones(B, dtype=torch.bool)
+    for a, b in zip(r_dec, r_full):
+        last = b.cpu().reshape(B, -1, b.shape[-1])[:, -1]
+        same &= (a.cpu().sort(-1).values == last.sort(-1).values).all(-1)
+    return same
+
+
+def decode_vs_prefill(cfg, params, toks, env):
+    """FAM_DECODE ``decode_step``s after a ``prefill`` of all but the last
+    FAM_DECODE columns of ``toks`` (with room for them), each held to the
+    ``prefill`` over the tokens so far: their errors as shares of the
+    largest logit (``logit_rel_err``) over the rows whose experts agree
+    (``same_routes``: one flipped choice among near-tied router logits
+    changes a row's output outright), the share of rows so held, the
+    kernels the first step launched (a ``torch.profiler`` trace), the
+    last prefill's logits and the cache after the last step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.transformer import decode_step, prefill
+    B, S = toks.shape[0], toks.shape[1] - FAM_DECODE
+    _, cache = prefill(params, {"tokens": toks[:, :S]}, cfg, env,
+                       cache_len=S + FAM_DECODE)
+    errs, held = [], []
+    for t in range(FAM_DECODE):
+        step = {"tokens": toks[:, S + t:S + t + 1]}
+        with Routes() as r_dec:
+            if t == 0:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    l_dec, cache = decode_step(params, cache, step, cfg, env)
+                    torch.cuda.synchronize()
+            else:
+                l_dec, cache = decode_step(params, cache, step, cfg, env)
+        with Routes() as r_full:
+            l_full, _ = prefill(params, {"tokens": toks[:, :S + t + 1]},
+                                cfg, env)
+        rows = same_routes(r_dec, r_full, B)
+        check(bool(rows.any()), f"{cfg.name}: every row's experts differ "
+                                f"between decode step {t} and prefill")
+        errs.append(logit_rel_err(l_full.cpu()[rows], l_dec.cpu()[rows]))
+        held.append(float(rows.float().mean()))
+    return errs, sum(held) / len(held), kernel_count(prof), l_full, cache
+
+
+def wrapped_ring(cfg, params, env) -> dict:
+    """A hybrid's decode through its ring, in fp32: a prompt as long as
+    the window W, with room for W more tokens (so the ring has W slots),
+    then W ``decode_step``s, each writing at ``pos % W``, until every slot
+    is overwritten; the last step's logits held to ``prefill`` over all
+    2W tokens within its fp32 FAM_TOL (the attention's chunks take
+    prefill lengths past W only as multiples of W: 2W is the first past
+    the wrap)."""
+    import numpy as np
+
+    from repro_torch.models.transformer import decode_step, prefill
+    W = cfg.sliding_window
+    toks = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, 2 * W)).astype(np.int32)
+    t = time.time()
+    with Fp32():
+        _, cache = prefill(params, {"tokens": toks[:, :W]}, cfg, env,
+                           cache_len=2 * W)
+        check(cache["k"].shape[2] == W, f"{cfg.name}: the ring has "
+                                        f"{cache['k'].shape[2]} slots, not {W}")
+        for p in range(W, 2 * W):
+            l_dec, cache = decode_step(params, cache,
+                                       {"tokens": toks[:, p:p + 1]}, cfg, env)
+        l_full, _ = prefill(params, {"tokens": toks}, cfg, env)
+    err = logit_rel_err(l_full, l_dec)
+    check(err <= FAM_TOL[cfg.name]["fp32"], f"{cfg.name}: fp32 decode "
+          f"through a wrapped ring vs prefill logits {err:.2e} of the max")
+    return dict(ring_slots=W, ring_decode_steps=W, ring_fp32_rel_err=err,
+                ring_s=time.time() - t)
+
+
+def family_checks(cfg, params, dev, card, log) -> None:
+    """One LM on the card at the width it has: ``prefill`` of GEN_BATCH x
+    GEN_PROMPT tokens (finite logits); greedy ``ServeEngine.generate`` of
+    GEN_NEW tokens, equal in two calls, the first token the prefill's
+    argmax; ``decode_vs_prefill`` (a MoE at a dropless capacity factor,
+    E / k: decode is dropless) in bf16 and in fp32 within the family's
+    FAM_TOL, and the card's bf16 prefill against its fp32 one logged;
+    for a hybrid, ``wrapped_ring``; and the kernels one decode step
+    launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models.transformer import ShardEnv, prefill
+    from repro_torch.serve.engine import ServeEngine
+    env, B, S = ShardEnv(None), GEN_BATCH, GEN_PROMPT
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S + FAM_DECODE)).astype(np.int32)
+    prompt = {"tokens": toks[:, :S]}
+    prefill(params, prompt, cfg, env)   # warm-up
+    torch.cuda.synchronize()
+    t = time.time()
+    logits, _ = prefill(params, prompt, cfg, env)
+    torch.cuda.synchronize()
+    prefill_ms = (time.time() - t) * 1e3
+    real = logits[..., :cfg.vocab_size]
+    check(logits.shape[:2] == (B, 1) and bool(torch.isfinite(real).all()),
+          f"{cfg.name}: prefill logits")
+
+    eng = ServeEngine(cfg, env, params, device=dev)
+    first = eng.generate(toks[:, :S], max_new=GEN_NEW)   # warm-up
+    torch.cuda.synchronize()
+    t = time.time()
+    out = eng.generate(toks[:, :S], max_new=GEN_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.time() - t
+    check(out.shape == (B, GEN_NEW) and torch.equal(first, out),
+          f"{cfg.name}: greedy generate differs between two calls")
+    check(bool((out < cfg.vocab_size).all()), f"{cfg.name}: a pad id")
+    check(torch.equal(out[:, 0], logits[:, -1].argmax(dim=-1).to(out.dtype)),
+          f"{cfg.name}: first generated token is not the prefill's argmax")
+
+    dcfg = (dataclasses.replace(cfg,
+                                capacity_factor=cfg.n_experts / cfg.moe_top_k)
+            if cfg.is_moe else cfg)
+    tol = FAM_TOL[cfg.name]
+    errs, rows, launches, l_bf16, _ = decode_vs_prefill(dcfg, params, toks,
+                                                        env)
+    check(max(errs) <= tol["decode"], f"{cfg.name}: bf16 decode vs "
+          f"prefill logits {max(errs):.4f} of the max")
+    with Fp32():
+        errs32, rows32, _, l_fp32, _ = decode_vs_prefill(dcfg, params, toks,
+                                                         env)
+    check(max(errs32) <= tol["fp32"], f"{cfg.name}: fp32 decode vs prefill "
+                                      f"logits {max(errs32):.2e} of the max")
+    drift = logit_rel_err(l_fp32, l_bf16)
+    ring = wrapped_ring(cfg, params, env) if cfg.family == "hybrid" else {}
+    n_params = sum(p.numel() for p in params.parameters())
+    log("lm_families_model", arch=cfg.name, family=cfg.family,
+        layers=cfg.n_layers, d=cfg.d_model, params=n_params,
+        params_gb=n_params * 4 / 1e9,
+        max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        prefill_ms=prefill_ms, prefill_tokens=B * S,
+        generate_s=gen_s, tokens_per_s=B * GEN_NEW / gen_s,
+        decode_step_kernels=launches, decode_rel_err=errs,
+        decode_tol=tol["decode"], decode_rows_same_experts=rows,
+        decode_fp32_rel_err=errs32,
+        decode_fp32_tol=tol["fp32"], decode_fp32_rows_same_experts=rows32,
+        bf16_vs_fp32_rel_err=drift, **ring, card=card)
+
+
+def ulp_moved(cfg, params, batch, env, base) -> float:
+    """How far the fp32 ``prefill`` logits ``base`` move, as a share of the
+    largest, when each embedding value of the prompt's tokens is scaled by
+    1 +- 2^-23 (one fp32 ulp, random signs): the scale at which this
+    model carries fp32 rounding through its layers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.transformer import prefill
+    ids = torch.as_tensor(np.unique(batch["tokens"]), device=params.device)
+    rows = params.embed.detach()[ids].clone()
+    g = torch.Generator(device=params.device).manual_seed(3)
+    sign = torch.randint(0, 2, rows.shape, generator=g,
+                         device=params.device) * 2 - 1
+    with torch.no_grad():
+        params.embed[ids] = rows * (1 + sign * 2.0 ** -23)
+        try:
+            moved = logit_rel_err(base, prefill(params, batch, cfg, env)[0])
+        finally:
+            params.embed[ids] = rows
+    return moved
+
+
+def host_check(cfg, params, log) -> None:
+    """The card's ``prefill`` logits of one FAM_HOST_LEN-token prompt held
+    to the port's on the host with the same weights, in bf16 and in fp32
+    within the family's FAM_TOL (with, for a MoE, the share of routing
+    decisions (token, choice) that agree logged, and ``ulp_moved`` of the
+    card's fp32 logits)."""
+    import numpy as np
+
+    from repro_torch.models.transformer import ShardEnv, on_device, prefill
+    env, tol = ShardEnv(None), FAM_TOL[cfg.name]
+    one = {"tokens": np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, FAM_HOST_LEN)).astype(np.int32)}
+    t = time.time()
+    host = on_device(params, "cpu")
+    with Routes() as routes:
+        l_card, _ = prefill(params, one, cfg, env)
+        n_card = len(routes)
+        l_host, _ = prefill(host, one, cfg, env)
+    err = logit_rel_err(l_host, l_card)
+    share = (float(np.mean([(a.cpu() == b).float().mean().item() for a, b
+                            in zip(routes[:n_card], routes[n_card:])]))
+             if routes else None)
+    with Fp32():
+        l32 = prefill(params, one, cfg, env)[0]
+        err32 = logit_rel_err(prefill(host, one, cfg, env)[0], l32)
+        ulp = ulp_moved(cfg, params, one, env, l32)
+    del host
+    log("lm_families_host", arch=cfg.name, layers=cfg.n_layers,
+        tokens=FAM_HOST_LEN, rel_err=err, tol=tol["host"],
+        routing_share_equal=share, fp32_rel_err=err32, fp32_tol=tol["fp32"],
+        fp32_ulp_rel_err=ulp, s=time.time() - t)
+    check(err32 <= tol["fp32"], f"{cfg.name}: fp32 card vs host prefill "
+                                f"logits {err32:.2e} of the max")
+    check(err <= tol["host"], f"{cfg.name}: bf16 card vs host prefill "
+                              f"logits {err:.4f} of the max")
+
+
+def hymba_retrieval(cfg, params, dev, card, log) -> None:
+    """Hymba's embeddings through the fused filtered search at d = 1,600:
+    HYMBA_DOCS documents encoded on the card, RAG_FIELDS fields, served
+    at k=K (``serve_corpus``); ``EncodedRetriever.retrieve_batch`` on
+    RAG_Q prompts with the rag path's three selectivities, its first
+    K1-K3 calls held to their plain versions and K2/K3 timed on them
+    (``first_batch``), its ids equal to ``embed_tokens`` +
+    ``query_batch``, passing their predicates, recall@K against exact
+    filtered top-k."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.types import Query
+    from repro_torch.data.ground_truth import recall_at_k
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.transformer import ShardEnv
+    from repro_torch.serve.retrieval import EncodedRetriever
+    env = ShardEnv(None)
+    _, vectors, enc_s = encode_corpus("lm_families", cfg, params, env,
+                                      HYMBA_DOCS, HYMBA_BATCH, dev)
+    log("lm_families_encode", arch=cfg.name, docs=HYMBA_DOCS, tokens=RAG_LEN,
+        batch=HYMBA_BATCH, s=enc_s, docs_per_s=HYMBA_DOCS / enc_s,
+        card=card)
+    rng = np.random.default_rng(0)
+    ds, svc = serve_corpus("lm_families", vectors, rng, dev, card, log)
+    retr = EncodedRetriever(cfg, env, params, svc)
+    prompts = TokenPipeline(cfg.vocab_size, RAG_Q, RAG_LEN,
+                            seed=1).get_batch(0)["tokens"]
+    preds = rag_predicates(rng, RAG_Q)
+    times = first_batch("lm_families/hymba_q64", retr, prompts, preds, dev,
+                        log)
+    torch.cuda.synchronize()
+    t = time.time()
+    ids, stats = retr.retrieve_batch(prompts, preds)
+    ms = (time.time() - t) * 1e3
+    q_vecs = retr.embed_tokens(prompts)
+    ids_q, _ = svc.query_batch(q_vecs, preds)
+    check(all(np.array_equal(a, b) for a, b in zip(ids, ids_q)),
+          "lm_families: retrieve_batch ids differ from query_batch on "
+          "embed_tokens")
+    gt, masks = ground_truth(
+        ds, [Query(vector=v, predicate=p) for v, p in zip(q_vecs, preds)],
+        dev)
+    check_results("lm_families/hymba_q64", ids, masks)
+    recs = np.array([recall_at_k(r, g) for r, g in zip(ids, gt)])
+    thirds = np.arange(RAG_Q) * 3 // RAG_Q
+    log("lm_families_retrieve_batch", arch=cfg.name, Q=RAG_Q, ms=ms,
+        recall_at_10=float(recs.mean()),
+        recall_by_sel=[float(recs[thirds == i].mean()) for i in range(3)],
+        walks=float(stats["walks"].mean()), syncs=stats["syncs"],
+        kernel_times=times, card=card)
+    del svc, retr
+
+
+def lm_families_path(dev, card, log) -> dict:
+    """The moe, hybrid and ssm LMs on the card (LM_FAMILIES; random
+    weights from ``init_params`` with seed 0), one at a time, each freed
+    before the next: ``family_checks``, for hymba its retrieval
+    (``hymba_retrieval``), then ``host_check`` (dbrx at one layer,
+    FAM_HOST_LAYERS: its host copy of four would take 57 GB). Returns the
+    path's launch counts."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import init_params
+    t_path = time.time()
+    build.LAUNCHES.clear()
+    for name, layers in LM_FAMILIES:
+        t = time.time()
+        cfg = get_config(name)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, seed=0, device=dev)
+        family_checks(cfg, params, dev, card, log)
+        if cfg.family == "hybrid":
+            hymba_retrieval(cfg, params, dev, card, log)
+        if name in FAM_HOST_LAYERS:
+            del params
+            torch.cuda.empty_cache()
+            cfg = dataclasses.replace(cfg, n_layers=FAM_HOST_LAYERS[name])
+            params = init_params(cfg, seed=0, device=dev)
+        host_check(cfg, params, log)
+        del params
+        log("lm_families_arch", arch=name, s=time.time() - t)
+    torch.cuda.empty_cache()
+    launches = path_launches("lm_families", SEARCH_KERNELS, log)
+    log("lm_families_path", s=time.time() - t_path)
+    return launches
+
+
 def run(report_path: str | None) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1869,6 +2311,8 @@ def run(report_path: str | None) -> int:
     del ds, index, held, batches, card_res
     torch.cuda.empty_cache()
     by_path["rag"] = rag_path(dev, card, log)
+    torch.cuda.empty_cache()
+    by_path["lm_families"] = lm_families_path(dev, card, log)
     # each kernel's launches come from the path it belongs to: K1-K3 from
     # the search, K4 and K5 from the parity gate
     for name, rec in records.items():

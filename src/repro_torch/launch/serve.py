@@ -1,8 +1,10 @@
-"""Serving launcher CLI: batched generation with a dense/vlm-family arch.
+"""Serving launcher CLI: batched generation with a dense, moe, hybrid or
+ssm arch (a frontend arch, internvl2 or whisper, is refused).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b --new 16
     PYTHONPATH=src python -m repro_torch.launch.serve --full   # SmolLM-135M
-    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --device cpu
 
 Runs on CUDA unless ``--device`` names another device. Weights are random
 (``init_params`` with seed 0). Prints the timed second call's tokens/s

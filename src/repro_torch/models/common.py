@@ -18,11 +18,12 @@ CDT = torch.bfloat16  # compute dtype
 
 
 def check_family(cfg) -> None:
-    """Raise for the model families the port does not have yet."""
-    if cfg.family not in ("dense", "vlm") or cfg.is_moe:
+    """Raise for the model family the port does not have yet (audio)."""
+    if cfg.family == "audio":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP queue 1 item 6); dense and vlm are")
+            f"(ROADMAP queue 1 item 6); dense, vlm, moe, hybrid and ssm "
+            f"are")
 
 
 def cast(x):

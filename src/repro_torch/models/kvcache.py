@@ -1,9 +1,13 @@
-"""Decode-state structures, as plain dicts of stacked (leading L) tensors;
-``prefill`` allocates its cache here.
+"""Decode-state structures per architecture family, as plain dicts of
+stacked (leading L) tensors; ``prefill`` allocates its cache here.
 
-Only the dense/vlm layout is ported: full-length K/V per layer (SWA layers
-mask to the window). The hybrid ring buffer, the rwkv6 state and whisper's
-cross K/V come with their families (ROADMAP queue 1 item 6).
+* dense/moe/vlm: full-length K/V per layer (SWA layers mask to the window);
+* hybrid (hymba): a K/V ring of ``min(window, S)`` slots + the mamba
+  (ssm fp32, conv tail) state;
+* ssm (rwkv6): the matrix-valued wkv state (fp32) + the token-shift
+  tails, O(1) in S.
+
+Whisper's cross K/V comes with the audio family (ROADMAP queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.core.device_atlas import resolve_device
 from repro_torch.models import common
 from repro_torch.models.common import check_family
+from repro_torch.models.mamba import CONV_K
 
 
 def cache_specs(cfg: ArchConfig, spec: ShapeSpec) -> dict:
@@ -20,15 +25,27 @@ def cache_specs(cfg: ArchConfig, spec: ShapeSpec) -> dict:
     and sequence length."""
     check_family(cfg)
     B, S = spec.global_batch, spec.seq_len
-    L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
-    return {"pos": ((), torch.int32),
-            "k": ((L, B, S, KV, hd), common.CDT),
-            "v": ((L, B, S, KV, hd), common.CDT)}
+    L, KV, hd, d = cfg.n_layers, cfg.n_kv_heads, cfg.hd, cfg.d_model
+    out = {"pos": ((), torch.int32)}
+    if cfg.family == "ssm":
+        H, N = d // cfg.rwkv_head_size, cfg.rwkv_head_size
+        out.update(wkv=((L, B, H, N, N), torch.float32),
+                   shift_tm=((L, B, d), common.CDT),
+                   shift_cm=((L, B, d), common.CDT))
+        return out
+    W = min(cfg.sliding_window or S, S) if cfg.family == "hybrid" else S
+    out.update(k=((L, B, W, KV, hd), common.CDT),
+               v=((L, B, W, KV, hd), common.CDT))
+    if cfg.family == "hybrid":
+        d_in = cfg.ssm_expand * d
+        out.update(ssm=((L, B, d_in, cfg.ssm_state), torch.float32),
+                   conv=((L, B, CONV_K - 1, d_in), common.CDT))
+    return out
 
 
 def init_cache(cfg: ArchConfig, spec: ShapeSpec, device=None) -> dict:
-    """An empty decode state: zero K/V on ``device`` (None means CUDA)
-    and ``pos`` 0 (the port keeps the position a Python int, so decoding
+    """An empty decode state: zeros on ``device`` (None means CUDA) and
+    ``pos`` 0 (the port keeps the position a Python int, so decoding
     reads no device scalar)."""
     dev = resolve_device(device)
     out = {name: torch.zeros(shape, dtype=dtype, device=dev)

@@ -1,24 +1,35 @@
-"""The LM's serving passes for the dense and vlm families: init, prefill,
-decode and encode.
+"""The LM's serving passes for the dense, vlm, moe, hybrid and ssm
+families: init, prefill, decode and encode.
 
 One layer loop covers dense GQA (llama / minitron / smollm and the
-internvl backbone, which takes precomputed patch embeddings) and gemma3's
-local:global sliding-window interleave. The moe, hybrid, ssm and audio
-families and the training loss wait for later slices (ROADMAP queue 1
-item 6) and raise ``NotImplementedError``.
+internvl backbone, which takes precomputed patch embeddings), gemma3's
+local:global sliding-window interleave, MoE FFNs (dbrx, kimi-k2 with its
+shared expert; ``models/moe.py``), hymba's parallel attention + mamba
+heads (``models/mamba.py``) and attention-free rwkv6
+(``models/rwkv6.py``). The audio family (whisper) and the training loss
+wait for later slices (ROADMAP queue 1 item 6) and raise
+``NotImplementedError``.
 
-Parameters are an ``nn.Module`` (``Transformer``): one ``Block`` per
+Parameters are an ``nn.Module`` (``Transformer``): one ``Tree`` per
 layer where the reference stacks every leaf under a leading L dim for its
 scan; the leaves keep the reference's names, shapes and fp32 storage, and
-every pass casts them to bf16 as the reference does. The passes run
-without autograd, on the device the parameters live on.
+every pass casts them as the reference does. The passes run without
+autograd, on the device the parameters live on.
 
-One difference from the reference, on purpose: its dense ``prefill``
-keeps a cache exactly as long as the prompt, so every ``decode_step``
-overwrites the last prompt position's K/V (``src/repro/models/
-transformer.py:371,436,439``). The port's ``prefill`` takes the cache
-length to leave room for; ``decode_step`` then computes what ``prefill``
-over the longer sequence computes, and raises when the cache is full.
+Two differences from the reference, on purpose, both in the decode
+cache (ROADMAP queue 3):
+* its dense and moe ``prefill`` keeps a cache exactly as long as the
+  prompt, so every ``decode_step`` overwrites the last prompt position's
+  K/V (``src/repro/models/transformer.py:371,436,439``). The port's
+  ``prefill`` takes the cache length to leave room for; ``decode_step``
+  then computes what ``prefill`` over the longer sequence computes, and
+  raises when the cache is full;
+* its hybrid ring keeps the prompt's last ``min(window, S)`` positions in
+  order (``:274-276``) but decodes at ``pos % S_cache`` (``:435``), so a
+  prompt shorter than the window loses its first token to the first
+  decode, and a longer one not a multiple of the window evicts the wrong
+  position. The port's ring holds ``min(window, cache_len)`` slots with
+  position p at ``p % ring``, so it always holds the window.
 """
 from __future__ import annotations
 
@@ -37,6 +48,10 @@ from repro_torch.models.common import (CDT, check_family, embed_lookup,
                                        init_dense, pad_vocab, rms_norm, rope,
                                        swiglu, unembed_logits)
 from repro_torch.models.kvcache import init_cache
+from repro_torch.models.mamba import init_mamba, mamba_forward
+from repro_torch.models.moe import MoEDims, moe_ffn
+from repro_torch.models.rwkv6 import (init_rwkv_layer, rwkv_channel_mix,
+                                      rwkv_time_mix)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,48 +71,35 @@ class ShardEnv:
 # parameters
 # ---------------------------------------------------------------------------
 
-class Attention(nn.Module):
-    """One layer's q/k/v/o projections, stored (in, out) in fp32."""
+class Tree(nn.Module):
+    """A dict of the reference's parameter leaves as a module: each fp32
+    tensor a ``Parameter`` under its leaf name, each sub-dict a child
+    ``Tree`` (read as ``p.attn.wq``, ``p.ffn.router``, ``p.mamba.A_log``,
+    or rwkv6's flat ``p.wr``)."""
 
-    def __init__(self, wq, wk, wv, wo):
+    def __init__(self, leaves: dict):
         super().__init__()
-        self.wq, self.wk = nn.Parameter(wq), nn.Parameter(wk)
-        self.wv, self.wo = nn.Parameter(wv), nn.Parameter(wo)
-
-
-class SwiGLU(nn.Module):
-    """One layer's gated FFN: gate, up (d, f) and down (f, d), fp32."""
-
-    def __init__(self, w_gate, w_up, w_down):
-        super().__init__()
-        self.w_gate, self.w_up = nn.Parameter(w_gate), nn.Parameter(w_up)
-        self.w_down = nn.Parameter(w_down)
-
-
-class Block(nn.Module):
-    """One transformer layer: the two norms' scales, attention, FFN."""
-
-    def __init__(self, ln1, ln2, attn: dict, ffn: dict):
-        super().__init__()
-        self.ln1, self.ln2 = nn.Parameter(ln1), nn.Parameter(ln2)
-        self.attn = Attention(**attn)
-        self.ffn = SwiGLU(**ffn)
+        for name, v in leaves.items():
+            if isinstance(v, dict):
+                self.add_module(name, Tree(v))
+            else:
+                self.register_parameter(name, nn.Parameter(v))
 
 
 class Transformer(nn.Module):
-    """Every parameter of a dense/vlm LM: the embedding (none for a
-    ``patch`` frontend, which feeds embeddings), the layers, the final
-    norm and the (padded-vocab) unembedding."""
+    """Every parameter of an LM: the embedding (none for a ``patch``
+    frontend, which feeds embeddings), the layers, the final norm and the
+    (padded-vocab) unembedding."""
 
     def __init__(self, cfg: ArchConfig, tree: dict):
-        """``tree``: {"unembed", "final_norm", "layers": [per-layer dicts
-        of ``Block``'s arguments], and "embed" unless the frontend is
+        """``tree``: {"unembed", "final_norm", "layers": [one dict of the
+        reference's leaves a layer], and "embed" unless the frontend is
         ``patch``}, all fp32 tensors on one device."""
         super().__init__()
         check_family(cfg)
         self.unembed = nn.Parameter(tree["unembed"])
         self.final_norm = nn.Parameter(tree["final_norm"])
-        self.layers = nn.ModuleList(Block(**lp) for lp in tree["layers"])
+        self.layers = nn.ModuleList(Tree(lp) for lp in tree["layers"])
         self.embed = (nn.Parameter(tree["embed"])
                       if cfg.frontend != "patch" else None)
 
@@ -115,34 +117,55 @@ def on_device(params: Transformer, device) -> Transformer:
     return params if params.device == dev else copy.deepcopy(params).to(dev)
 
 
+def _init_ffn(gen, d: int, f: int) -> dict:
+    return {"w_gate": init_dense(gen, (d, f)), "w_up": init_dense(gen, (d, f)),
+            "w_down": init_dense(gen, (f, d))}
+
+
+def _init_moe(gen, cfg: ArchConfig) -> dict:
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = {"router": init_dense(gen, (d, E), scale=0.02),
+         "w1": init_dense(gen, (E, d, f)), "w3": init_dense(gen, (E, d, f)),
+         "w2": init_dense(gen, (E, f, d))}
+    if cfg.n_shared_experts:
+        p["shared"] = _init_ffn(gen, d, f * cfg.n_shared_experts)
+    return p
+
+
+def _init_layer(gen, cfg: ArchConfig) -> dict:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    p = {"ln1": torch.zeros(d, device=gen.device),
+         "ln2": torch.zeros(d, device=gen.device)}
+    if cfg.family == "ssm":
+        return {**p, **init_rwkv_layer(gen, d, cfg.d_ff, cfg.rwkv_head_size)}
+    p["attn"] = {"wq": init_dense(gen, (d, H * hd)),
+                 "wk": init_dense(gen, (d, KV * hd)),
+                 "wv": init_dense(gen, (d, KV * hd)),
+                 "wo": init_dense(gen, (H * hd, d))}
+    if cfg.family == "hybrid":
+        p["mamba"] = init_mamba(gen, d, cfg.ssm_expand * d, cfg.ssm_state,
+                                dt_rank=max(d // 16, 8))
+        p["beta"] = torch.zeros(2, device=gen.device)
+    p["ffn"] = _init_moe(gen, cfg) if cfg.is_moe else \
+        _init_ffn(gen, d, cfg.d_ff)
+    return p
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Transformer:
     """Random weights from a ``torch.Generator`` seeded with ``seed`` on
-    ``device`` (None means CUDA): normal at 1/sqrt(fan_in) for the
-    projections, 0.02 for the embeddings, zeros for the norm scales (the
-    reference's recipe; its numbers differ, since jax draws its own)."""
+    ``device`` (None means CUDA), by the reference's recipe: normal at
+    1/sqrt(fan_in) for the projections and experts, 0.02 for the
+    embeddings and the router, zeros for the norm scales, and the mamba
+    and rwkv6 leaves' own constants (its numbers differ, since jax draws
+    its own)."""
     check_family(cfg)
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    d, H, KV, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, \
-        cfg.d_ff
-    v_pad = pad_vocab(cfg.vocab_size)
-
-    def dense(*shape, scale=None):
-        return init_dense(gen, shape, scale)
-
-    def zeros():
-        return torch.zeros(d, device=dev)
-
-    layers = [{"ln1": zeros(), "ln2": zeros(),
-               "attn": {"wq": dense(d, H * hd), "wk": dense(d, KV * hd),
-                        "wv": dense(d, KV * hd), "wo": dense(H * hd, d)},
-               "ffn": {"w_gate": dense(d, f), "w_up": dense(d, f),
-                       "w_down": dense(f, d)}}
-              for _ in range(cfg.n_layers)]
-    tree = {"unembed": dense(v_pad, d, scale=0.02), "final_norm": zeros(),
-            "layers": layers}
+    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    v_pad, d = pad_vocab(cfg.vocab_size), cfg.d_model
+    layers = [_init_layer(gen, cfg) for _ in range(cfg.n_layers)]
+    tree = {"unembed": init_dense(gen, (v_pad, d), scale=0.02),
+            "final_norm": torch.zeros(d, device=gen.device), "layers": layers}
     if cfg.frontend != "patch":
-        tree["embed"] = dense(v_pad, d, scale=0.02)
+        tree["embed"] = init_dense(gen, (v_pad, d), scale=0.02)
     return Transformer(cfg, tree)
 
 
@@ -163,7 +186,7 @@ def _proj(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return h @ w.to(h.dtype)
 
 
-def _attend_full(p: Attention, h, cfg: ArchConfig, window: int, positions):
+def _attend_full(p: Tree, h, cfg: ArchConfig, window: int, positions):
     """Causal chunked self-attention with RoPE. h: (B, S, d). Returns the
     output and the layer's (k, v), (B, S, KV, hd) each."""
     B, S, _ = h.shape
@@ -175,31 +198,78 @@ def _attend_full(p: Attention, h, cfg: ArchConfig, window: int, positions):
     return _proj(o.reshape(B, S, H * hd), p.wo), (k, v)
 
 
-def _ffn_apply(p: SwiGLU, h: torch.Tensor) -> torch.Tensor:
+def _swiglu(p: Tree, h: torch.Tensor) -> torch.Tensor:
     return swiglu(h, p.w_gate.to(h.dtype), p.w_up.to(h.dtype),
                   p.w_down.to(h.dtype))
 
 
-def _block_forward(p: Block, h, cfg: ArchConfig, window: int, positions):
-    """One transformer block (prefill/encode path). Returns (h, (k, v))."""
-    ao, kv = _attend_full(p.attn, rms_norm(h, p.ln1, cfg.norm_eps), cfg,
-                          window, positions)
+def _ffn_apply(p: Tree, h: torch.Tensor, cfg: ArchConfig,
+               mode: str) -> torch.Tensor:
+    """The layer's FFN: a SwiGLU, or the MoE (capacity-bounded outside
+    decode, dropless in it) plus kimi-k2's shared expert."""
+    if not cfg.is_moe:
+        return _swiglu(p, h)
+    y = moe_ffn(h, p, MoEDims(cfg.n_experts, cfg.moe_top_k,
+                              cfg.capacity_factor), mode=mode)
+    if cfg.n_shared_experts:
+        y = y + _swiglu(p.shared, h)
+    return y
+
+
+def _mix_heads(beta: torch.Tensor, ao: torch.Tensor,
+               mo: torch.Tensor) -> torch.Tensor:
+    """Hymba's parallel heads: sigmoid(beta)-weighted sum in fp32."""
+    b = torch.sigmoid(beta.float())
+    return (b[0] * ao.float() + b[1] * mo.float()).to(ao.dtype)
+
+
+def _block_forward(p: Tree, h, cfg: ArchConfig, window: int, positions,
+                   mode: str):
+    """One block (prefill/encode path). Returns (h, the layer's decode
+    state: k/v, plus mamba's ssm/conv for hybrid; rwkv6's wkv and shift
+    tails for ssm)."""
+    eps = cfg.norm_eps
+    if cfg.family == "ssm":
+        y, (shift_tm, wkv) = rwkv_time_mix(p, rms_norm(h, p.ln1, eps), None,
+                                           cfg.rwkv_head_size)
+        h = h + y
+        y, shift_cm = rwkv_channel_mix(p, rms_norm(h, p.ln2, eps), None)
+        return h + y, {"wkv": wkv, "shift_tm": shift_tm,
+                       "shift_cm": shift_cm}
+    hn = rms_norm(h, p.ln1, eps)
+    ao, (k, v) = _attend_full(p.attn, hn, cfg, window, positions)
+    state = {"k": k, "v": v}
+    if cfg.family == "hybrid":
+        mo, (state["ssm"], state["conv"]) = mamba_forward(p.mamba, hn)
+        ao = _mix_heads(p.beta, ao, mo)
     h = h + ao
-    h = h + _ffn_apply(p.ffn, rms_norm(h, p.ln2, cfg.norm_eps))
-    return h, kv
+    return h + _ffn_apply(p.ffn, rms_norm(h, p.ln2, eps), cfg, mode), state
+
+
+def _store(cache: dict, li: int, state: dict) -> None:
+    """Layer ``li``'s prefill state into the cache. K/V of positions
+    0..S-1 go to slot ``p % R`` of the cache's R slots, the last
+    ``min(S, R)`` of them kept (R >= S but for a hybrid ring shorter than
+    the prompt); the recurrent states are copied whole."""
+    for name, x in state.items():
+        if name not in ("k", "v"):
+            cache[name][li] = x
+            continue
+        S, R = x.shape[1], cache[name].shape[2]
+        m = min(S, R)
+        slots = torch.arange(S - m, S, device=x.device) % R
+        cache[name][li][:, slots] = x[:, S - m:]
 
 
 def _stack_forward(params: Transformer, cfg: ArchConfig, h, cache=None):
-    """Every layer in order, each with its own window. With ``cache``
-    (k, v of shape (L, B, C, KV, hd), C >= S), layer l's K/V land in
-    ``cache["k"][l, :, :S]`` and ``cache["v"][l, :, :S]``."""
+    """Every layer in order, each with its own window; with ``cache``,
+    each layer's decode state stored there (``_store``)."""
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)[None, :]
     for li, (lp, w) in enumerate(zip(params.layers, _layer_windows(cfg))):
-        h, (k, v) = _block_forward(lp, h, cfg, w, positions)
+        h, state = _block_forward(lp, h, cfg, w, positions, "prefill")
         if cache is not None:
-            cache["k"][li, :, :S] = k
-            cache["v"][li, :, :S] = v
+            _store(cache, li, state)
     return h
 
 
@@ -224,9 +294,10 @@ def _embed(params: Transformer, batch: dict) -> torch.Tensor:
 def prefill(params: Transformer, batch: dict, cfg: ArchConfig,
             env: ShardEnv, cache_len: int | None = None):
     """Prefill pass: returns (last-position logits (B, 1, V_pad) fp32, the
-    cache). The cache holds ``cache_len`` positions (default: the
-    prompt's S, the reference's layout), the first S filled, so
-    ``cache_len - S`` tokens can be decoded after it."""
+    cache). A K/V cache holds ``cache_len`` positions (default: the
+    prompt's S, the reference's layout), so ``cache_len - S`` tokens can
+    be decoded after it; a hybrid ring holds ``min(sliding_window,
+    cache_len)``. An ssm cache is the recurrent state alone."""
     check_family(cfg)
     h = _embed(params, batch)
     B, S, _ = h.shape
@@ -241,43 +312,70 @@ def prefill(params: Transformer, batch: dict, cfg: ArchConfig,
     return unembed_logits(h, params.unembed, cfg.vocab_size), cache
 
 
+def _ring(cfg: ArchConfig, slots: int) -> bool:
+    """A hybrid K/V cache as long as the window: its slots are reused
+    (the oldest position leaves the window as the new one enters)."""
+    return cfg.family == "hybrid" and slots == cfg.sliding_window
+
+
 @torch.no_grad()
 def decode_step(params: Transformer, cache: dict, batch: dict,
                 cfg: ArchConfig, env: ShardEnv):
-    """One-token decode against a populated cache. Writes the token's K/V
-    into the cache in place (no copy of the whole cache per step) and
-    returns (logits (B, 1, V_pad), the cache with ``pos`` advanced)."""
+    """One-token decode against a populated cache. Writes the token's
+    state into the cache in place (no copy of the whole cache per step)
+    and returns (logits (B, 1, V_pad), the cache with ``pos`` advanced)."""
     check_family(cfg)
-    pos, S_cache = cache["pos"], cache["k"].shape[2]
-    if pos >= S_cache:
-        raise ValueError(
-            f"decode_step: the cache's {S_cache} positions are all used; "
-            f"prefill with cache_len= the prompt plus the tokens to decode")
+    pos = cache["pos"]
+    if "k" in cache:
+        R = cache["k"].shape[2]
+        if pos >= R and not _ring(cfg, R):
+            raise ValueError(
+                f"decode_step: the cache's {R} positions are all used; "
+                f"prefill with cache_len= the prompt plus the tokens to "
+                f"decode")
     h = _embed(params, batch)
     posv = torch.full((1, 1), pos, dtype=torch.int32, device=h.device)
     for li, (lp, w) in enumerate(zip(params.layers, _layer_windows(cfg))):
-        h = _decode_block(lp, h, cfg, w, pos, posv, cache["k"][li],
-                          cache["v"][li])
+        h = _decode_block(lp, h, cfg, w, pos, posv, cache, li)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
     logits = unembed_logits(h, params.unembed, cfg.vocab_size)
     return logits, {**cache, "pos": pos + 1}
 
 
-def _decode_block(p: Block, h, cfg: ArchConfig, window: int, pos: int,
-                  posv, kc, vc):
-    """Single-token block forward; writes slot ``pos`` of this layer's
-    caches ``kc``/``vc`` (B, S_cache, KV, hd)."""
-    hn = rms_norm(h, p.ln1, cfg.norm_eps)
+def _decode_block(p: Tree, h, cfg: ArchConfig, window: int, pos: int,
+                  posv, cache: dict, li: int):
+    """Single-token block forward; updates layer ``li``'s slices of the
+    cache. K/V go to slot ``pos % R`` (R >= pos + 1 but for a full ring,
+    which holds exactly the window, so it attends every slot)."""
+    eps = cfg.norm_eps
+    if cfg.family == "ssm":
+        y, (cache["shift_tm"][li], cache["wkv"][li]) = rwkv_time_mix(
+            p, rms_norm(h, p.ln1, eps),
+            (cache["shift_tm"][li], cache["wkv"][li]), cfg.rwkv_head_size)
+        h = h + y
+        y, cache["shift_cm"][li] = rwkv_channel_mix(
+            p, rms_norm(h, p.ln2, eps), cache["shift_cm"][li])
+        return h + y
+    hn = rms_norm(h, p.ln1, eps)
     B = hn.shape[0]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    kc, vc = cache["k"][li], cache["v"][li]
+    R = kc.shape[1]
     q = rope(_proj(hn, p.attn.wq).reshape(B, 1, H, hd), posv,
              cfg.rope_theta)
-    kc[:, pos] = rope(_proj(hn, p.attn.wk).reshape(B, 1, KV, hd), posv,
-                      cfg.rope_theta)[:, 0]
-    vc[:, pos] = _proj(hn, p.attn.wv).reshape(B, KV, hd)
-    ao = attn_lib.decode_attention(q, kc, vc, pos + 1, window=window)
-    h = h + _proj(ao.reshape(B, 1, H * hd), p.attn.wo)
-    return h + _ffn_apply(p.ffn, rms_norm(h, p.ln2, cfg.norm_eps))
+    kc[:, pos % R] = rope(_proj(hn, p.attn.wk).reshape(B, 1, KV, hd), posv,
+                          cfg.rope_theta)[:, 0]
+    vc[:, pos % R] = _proj(hn, p.attn.wv).reshape(B, KV, hd)
+    ao = attn_lib.decode_attention(
+        q, kc, vc, min(pos + 1, R),
+        window=0 if cfg.family == "hybrid" else window)
+    ao = _proj(ao.reshape(B, 1, H * hd), p.attn.wo)
+    if cfg.family == "hybrid":
+        mo, (cache["ssm"][li], cache["conv"][li]) = mamba_forward(
+            p.mamba, hn, (cache["ssm"][li], cache["conv"][li]))
+        ao = _mix_heads(p.beta, ao, mo)
+    h = h + ao
+    return h + _ffn_apply(p.ffn, rms_norm(h, p.ln2, eps), cfg, "decode")
 
 
 @torch.no_grad()

@@ -10,9 +10,9 @@ from repro_torch.models.transformer import (ShardEnv, Transformer,
 
 
 class ServeEngine:
-    """Generation with a dense/vlm LM on ``device`` (None means CUDA),
-    with ``params`` there or a copy of them (the caller's module does not
-    move)."""
+    """Generation with a dense, vlm, moe, hybrid or ssm LM on ``device``
+    (None means CUDA), with ``params`` there or a copy of them (the
+    caller's module does not move)."""
 
     def __init__(self, cfg: ArchConfig, env: ShardEnv, params: Transformer,
                  device=None):
@@ -27,9 +27,11 @@ class ServeEngine:
         ``jnp.argmax``) at temperature 0, else sampled from
         softmax(logits / temperature) with ``generator``.
 
-        The prefill leaves room for the new tokens, so each decode step
-        attends over the whole prompt (see ``models.transformer``); the
-        last token needs no decode step after it."""
+        The prefill leaves room for the new tokens (a hybrid ring as long
+        as the window at most; an ssm state needs none), so each decode
+        step attends what ``prefill`` over the longer sequence would (see
+        ``models.transformer``); the last token needs no decode step
+        after it."""
         if temperature > 0.0 and generator is None:
             raise ValueError("generate: sampling needs a torch.Generator")
         tokens = torch.as_tensor(tokens, device=self.device)

@@ -1,8 +1,10 @@
 """The port's RAG bridge and generation on the CPU: ``TokenPipeline``,
 ``EncodedRetriever`` (the LM encoder feeding ``RetrievalService``),
 ``ServeEngine.generate`` and the ``launch/serve.py`` CLI, held to the
-reference (run with ``ShardEnv(None)``) with the same weights
-(``interop.params_from_reference``) at reduced SmolLM.
+reference (run with ``ShardEnv(None)``; its MoE on the (1, 1) ``Auto``
+mesh) with the same weights (``interop.params_from_reference``) at
+reduced SmolLM, and for the moe, hybrid and ssm families at reduced
+dbrx, hymba and rwkv6.
 
 Tolerances: embeddings at cosine ≥ 0.9995 (bf16 encode; measured
 ≥ 0.99987); ids exact where both packages search the same vectors, and
@@ -13,7 +15,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_moe import auto_mesh, dropless
 
+import repro.models.common as ref_common
 from repro.configs import reduced_config as ref_reduced_config
 from repro.core.search import SearchParams as RefParams
 from repro.core.types import Dataset as RefDataset
@@ -28,6 +32,7 @@ from repro_torch.core.types import Dataset, FilterPredicate
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.interop import params_from_reference
 from repro_torch.launch import serve as serve_cli
+from repro_torch.models import common
 from repro_torch.models import transformer as tf
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.retrieval import EncodedRetriever, RetrievalService
@@ -51,7 +56,21 @@ def lm():
 def corpus(lm):
     """Documents encoded once by the reference, served by both packages
     over the same vectors (each builds its own index, bit for bit)."""
-    cfg, ref, _ = lm
+    return _corpus(*lm[:2])
+
+
+@pytest.fixture(scope="module")
+def hymba():
+    """Reduced hymba (attention + mamba heads, a 32-token window) and a
+    corpus its reference encoded."""
+    cfg = reduced_config("hymba-1.5b")
+    ref = ref_tf.init_params(ref_reduced_config("hymba-1.5b"),
+                             jax.random.PRNGKey(0))
+    lm = (cfg, ref, params_from_reference(ref, cfg, device="cpu"))
+    return lm, _corpus(cfg, ref)
+
+
+def _corpus(cfg, ref):
     rng = np.random.default_rng(0)
     docs = rng.integers(0, cfg.vocab_size, (N_DOCS, DOC_LEN)).astype(np.int32)
     vecs = np.asarray(ref_tf.encode(ref, {"tokens": jnp.asarray(docs)}, cfg,
@@ -102,6 +121,10 @@ def test_token_pipeline_bit_identical(frontend):
 def test_embed_tokens_matches_reference(lm, corpus):
     """The port's encoder against the reference's on documents and
     prompts: unit fp32 rows at cosine ≥ 0.9995."""
+    _check_embed_tokens(lm, corpus)
+
+
+def _check_embed_tokens(lm, corpus):
     ref_r, port_r = _retrievers(lm, corpus)
     for toks in (corpus[0][:64], _prompts(lm[0], 16)):
         a, b = ref_r.embed_tokens(jnp.asarray(toks)), port_r.embed_tokens(toks)
@@ -116,6 +139,31 @@ def test_retrieve_batch_matches_reference(lm, corpus):
     and overlaps the reference retriever's own answers by ≥ 0.98; every
     id passes its prompt's predicate. ``retrieve`` (sequential) returns
     the reference's ids for the same embeddings."""
+    _check_retrieve(lm, corpus)
+
+
+def test_hymba_retriever_matches_reference(hymba):
+    """The same two checks with reduced hymba as the encoder (attention
+    and mamba heads): embeddings at cosine ≥ 0.9995, ``retrieve_batch``
+    and ``retrieve`` ids exact on the same embeddings, and an overlap of
+    ≥ 0.95 with the reference retriever's own answers (measured 0.975:
+    three near-tie swaps in 120 ids)."""
+    _check_embed_tokens(*hymba)
+    _check_retrieve(*hymba, own_overlap=0.95)
+
+
+def test_hymba_retriever_fp32_returns_reference_ids(hymba, monkeypatch):
+    """With both packages computing in fp32 (``CDT`` patched) the two
+    encoders agree to rounding, and ``retrieve_batch`` returns the
+    reference retriever's ids exactly."""
+    monkeypatch.setattr(ref_common, "CDT", jnp.float32)
+    monkeypatch.setattr(ref_tf, "CDT", jnp.float32)
+    monkeypatch.setattr(common, "CDT", torch.float32)
+    monkeypatch.setattr(tf, "CDT", torch.float32)
+    _check_retrieve(*hymba, own_overlap=1.0)
+
+
+def _check_retrieve(lm, corpus, own_overlap=OVERLAP):
     ref_r, port_r = _retrievers(lm, corpus)
     meta = corpus[2]
     toks = _prompts(lm[0], 24)
@@ -132,7 +180,7 @@ def test_retrieve_batch_matches_reference(lm, corpus):
         assert FilterPredicate.make(specs[i]).mask(meta)[a].all()
     np.testing.assert_array_equal(stats["walks"], want_stats["walks"])
     own, _ = ref_r.retrieve_batch(jnp.asarray(toks), ref_preds)
-    assert _overlap(ids, [np.asarray(r) for r in own]) >= OVERLAP
+    assert _overlap(ids, [np.asarray(r) for r in own]) >= own_overlap
     pred = FilterPredicate.make(PREDS[0])
     got = port_r.retrieve(toks[:4], pred, seed=3)
     for i, (g_ids, g_sims, _st) in enumerate(got):
@@ -145,11 +193,12 @@ def _ref_last_logits(cfg, ref, prompt, generated):
     """The reference's last-position logits over the prompt plus each
     prefix of ``generated`` (its ``prefill`` over the whole sequence, no
     decode cache): (B, T, V)."""
+    env = ref_tf.ShardEnv(auto_mesh() if cfg.is_moe else None)
     out = []
     for t in range(generated.shape[1]):
         seq = np.concatenate([prompt, generated[:, :t]], axis=1)
         logits, _ = ref_tf.prefill(ref, {"tokens": jnp.asarray(seq)}, cfg,
-                                   ref_tf.ShardEnv(None))
+                                   env)
         out.append(np.asarray(logits[:, -1], np.float32))
     return np.stack(out, axis=1)
 
@@ -160,7 +209,21 @@ def test_generate_greedy_matches_reference(lm):
     whose reference logit is within the bf16 logit tolerance of the
     maximum; at least 90% are the argmax itself (measured: all 40). Two
     calls give the same tokens."""
-    cfg, ref, port = lm
+    _check_greedy(*lm)
+
+
+@pytest.mark.parametrize("name", ["dbrx-132b", "hymba-1.5b", "rwkv6-3b"])
+def test_generate_family_greedy_matches_reference(name):
+    """The same for the moe (dbrx with a dropless capacity factor: its
+    decode is dropless), hybrid and ssm families at reduced width."""
+    cfg = reduced_config(name)
+    if cfg.is_moe:
+        cfg = dropless(cfg)
+    ref = ref_tf.init_params(cfg, jax.random.PRNGKey(0))
+    _check_greedy(cfg, ref, params_from_reference(ref, cfg, device="cpu"))
+
+
+def _check_greedy(cfg, ref, port):
     prompt = _prompts(cfg, 4, seed=5)
     eng = ServeEngine(cfg, tf.ShardEnv(None), port, device="cpu")
     out = eng.generate(prompt, max_new=10)
@@ -229,3 +292,15 @@ def test_serve_cli_on_cpu(capsys):
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith("smollm-135m on cpu: generated 2x5 tokens")
     assert "tok/s" in out[0]
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "hymba-1.5b", "rwkv6-3b"])
+def test_serve_cli_families_on_cpu(arch, capsys):
+    """The CLI serves the moe, hybrid and ssm archs (reduced) and still
+    refuses the frontend archs."""
+    serve_cli.main(["--arch", arch, "--device", "cpu", "--batch", "2",
+                    "--new", "5", "--prompt-len", "40"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith(f"{arch} on cpu: generated 2x5 tokens")
+    with pytest.raises(SystemExit, match="frontend"):
+        serve_cli.main(["--arch", "whisper-small", "--device", "cpu"])

@@ -2,20 +2,23 @@
 """Where the LM path's time goes on the card.
 
     PYTHONPATH=src python3 tools/torch_lm_profile.py [--arch smollm-135m]
-        [--device cuda] [--reduced]
+        [--device cuda] [--reduced] [--src DIR]
 
 At the arch's published widths (random weights from ``init_params``,
 seed 0): one ``encode`` of 256 documents of 64 tokens (the ``rag`` path's
 corpus batch), one of 64 prompts (its query batch) and one greedy
 ``ServeEngine.generate`` (batch 4, prompt 32, 16 new tokens, the
-``launch/serve.py`` defaults). Each is timed by host clock around calls
+``launch/serve.py`` defaults) and one ``decode_step`` of that batch
+after its prompt's ``prefill``. Each is timed by host clock around calls
 that end in a synchronise (median of 5, after a warm-up), then traced once
 under ``torch.profiler``: the device's busy share (the kernels' device
 time over the traced wall time, ``chip_smoke.kernel_device_us``) and the
 torch ops whose kernels took the most device time.
 Prints one JSON line per measurement, each with the card's name and
 power limit. ``--device cpu --reduced`` rehearses it on the host (host
-times only; no device figure).
+times only; no device figure). ``--src`` picks the package to load
+(``src`` of this checkout by default; point it at another checkout's
+``src`` to run that version, in its own process, inside the same call).
 """
 from __future__ import annotations
 
@@ -41,6 +44,14 @@ def card_line(dev) -> str:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--src", default=os.path.join(ROOT, "src"))
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.src))
+
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -48,14 +59,9 @@ def main() -> int:
     from chip_smoke import kernel_device_us
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.data.tokens import TokenPipeline
-    from repro_torch.models.transformer import ShardEnv, encode, init_params
+    from repro_torch.models.transformer import (ShardEnv, decode_step, encode,
+                                                init_params, prefill)
     from repro_torch.serve.engine import ServeEngine
-
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="smollm-135m")
-    ap.add_argument("--device", default="cuda")
-    ap.add_argument("--reduced", action="store_true")
-    args = ap.parse_args()
     dev = torch.device(args.device)
     cfg = (reduced_config if args.reduced else get_config)(args.arch)
     env = ShardEnv(None)
@@ -71,11 +77,15 @@ def main() -> int:
     eng = ServeEngine(cfg, env, params, device=dev)
     prompt = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (4, 32)).astype(np.int32)
+    _, cache = prefill(params, {"tokens": prompt}, cfg, env, cache_len=48)
+    step = {"tokens": prompt[:, :1]}
     cases = {
         "encode_256x64": lambda: encode(params, {"tokens": docs}, cfg, env),
         "encode_64x64": lambda: encode(params, {"tokens": docs[:64]}, cfg,
                                        env),
         "generate_4x32_new16": lambda: eng.generate(prompt, max_new=16),
+        # each call writes the same slot of one cache
+        "decode_step_4x1": lambda: decode_step(params, cache, step, cfg, env),
     }
     for name, fn in cases.items():
         fn()
@@ -88,7 +98,8 @@ def main() -> int:
             times.append((time.perf_counter() - t) * 1e3)
         rec = {"case": name, "arch": cfg.name, "layers": cfg.n_layers,
                "d": cfg.d_model, "host_ms": statistics.median(times),
-               "device": str(dev), "card": card}
+               "device": str(dev), "card": card,
+               "src": os.path.relpath(os.path.abspath(args.src), ROOT)}
         if dev.type == "cuda":
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
