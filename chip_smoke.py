@@ -14,7 +14,7 @@ mask at k=32) and also at ragged shapes (K1 in its three forms across its
 tile and query-group edges; K4 across its words and grid, at odd and even
 F, v_cap 32 to 1024 and with every clause inactive; K2, K3 and K5 at
 n % 32 != 0 and d % 4 != 0; K5 with no valid id, no pass bit and every
-pass bit), and then drives seven paths, each with the launch counts
+pass bit), and then drives eight paths, each with the launch counts
 cleared just before it and read just after:
 
 * the kernel/plain-version parity gate (``kernels.parity.parity_gate``),
@@ -77,7 +77,22 @@ cleared just before it and read just after:
   ``EncodedRetriever.retrieve_batch`` answers 64 prompts through K1-K3
   at d = 1,600 (first calls held to their plain versions, K2/K3 timed),
   with the ids of ``query_batch`` on ``embed_tokens``, every id passing
-  its predicate, recall against exact filtered top-k.
+  its predicate, recall against exact filtered top-k;
+* training (``train_path``; it launches none of the five kernels):
+  SmolLM-135M whole as ``launch/train.py --full`` trains it (batch 8 x
+  128 tokens, lr 3e-3): step 0's loss and gradients on the card held to
+  the host's from the same weights and batch in fp32 and bf16, 30 steps
+  of ``TrainLoop`` (the loss descending; ms a step, tokens/s, peak
+  memory), a checkpoint after 6 steps resumed to 12 (the losses of the
+  straight run), and SIGUSR1 during step 3 (a checkpoint of step 4, the
+  run ended); whisper-small whole: its encoder over 1,500 frames and 16
+  greedy decode steps for 4 prompts of 32 tokens, held to ``prefill``
+  over the longer sequence and to the host's prefill in bf16 and fp32,
+  then 10 training steps on frame batches; one fp32 ``make_train_step``
+  of hymba-1.5b and of rwkv6-3b at full width and 2 layers held to the
+  host's; dbrx-132b at full width and 1 layer, the loss and gradients
+  through the MoE's capacity path (finite, none zero) and its bf16
+  token losses held to fp32 on the tokens whose experts agree.
 
 Prints the kernels' timings as one JSON line (each record with its
 share of its bound and its time against one PyTorch call, both from this
@@ -91,6 +106,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2008,9 +2024,7 @@ def wrapped_ring(cfg, params, env) -> dict:
     the window W, with room for W more tokens (so the ring has W slots),
     then W ``decode_step``s, each writing at ``pos % W``, until every slot
     is overwritten; the last step's logits held to ``prefill`` over all
-    2W tokens within its fp32 FAM_TOL (the attention's chunks take
-    prefill lengths past W only as multiples of W: 2W is the first past
-    the wrap)."""
+    2W tokens within its fp32 FAM_TOL (2W: every slot overwritten once)."""
     import numpy as np
 
     from repro_torch.models.transformer import decode_step, prefill
@@ -2261,6 +2275,580 @@ def lm_families_path(dev, card, log) -> dict:
     return launches
 
 
+# -- the training path ---------------------------------------------------------
+
+TRAIN_ARCH = "smollm-135m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 128, 3e-3   # launch/train.py's defaults
+TRAIN_STEPS = 30
+TRAIN_TIMED_FROM = 5      # ms a step: the median over steps 5..29
+TRAIN_DESCENT = 1.0       # the last step's loss below the first by this much
+RESUME_AT, RESUME_TO = 6, 12
+RESUME_RTOL = 1e-4        # losses after a resume vs straight through
+PREEMPT_AT = 3            # SIGUSR1 is sent during this step
+# Step 0 on the card held to the same step on the host, bounds from the
+# CPU tests' (tests/test_torch_train.py: fp32 loss 1e-5, each gradient
+# leaf 1e-4 of its largest magnitude, bf16 loss 2e-3, at 2 layers) scaled
+# by 5 >= sqrt(30 / 2) for SmolLM's 30 layers; the grad norm as a leaf.
+# bf16 gradients are held as the CPU test holds them: each leaf of the
+# card's no further from the host's fp32 gradient than STEP0_RATIO times
+# the host's own bf16 gradient, plus STEP0_FLOOR (rounding moves whole
+# one-hots of the loss's gradient, test_loss_and_grads_bf16).
+STEP0_TOL = dict(loss=5e-5, gnorm=5e-4, leaf=5e-4, loss_bf16=1e-2)
+STEP0_RATIO, STEP0_FLOOR = 2.5, 1e-2
+WHISPER_ARCH = "whisper-small"
+WHISPER_FRAMES = 1500     # a 30-s window after the (stubbed) conv frontend
+WHISPER_HELD = (0, 5, 10, 15)   # decode steps held to the longer prefill
+# Shares of the largest logit: bf16 decode vs the longer prefill and card
+# vs host prefill, and fp32 both (FAM_TOL's fp32 bound; bf16 between its
+# dbrx and hymba bounds, for 12 + 12 layers).
+WHISPER_TOL = dict(decode=0.06, host=0.06, fp32=1e-3)
+WHISPER_TRAIN_STEPS, WHISPER_DESCENT = 10, 0.5
+# One step of each family at full width and 2 layers, held to the host's
+# fp32 step with the CPU tests' bounds (loss 1e-5 scaled by the loss's
+# ~11 nats over their ~6, each m leaf 1e-4 of its largest), and the
+# update of the same gradients on both within 1e-3 lr (fp32 elementwise
+# arithmetic: ulps of the parameter and of the clip scale).
+FAMILY_STEPS = ("hymba-1.5b", "rwkv6-3b")
+FAMILY_LAYERS, FAMILY_BATCH, FAMILY_SEQ = 2, 2, 128
+FAMILY_TOL = dict(loss=2e-5, leaf=1e-4, update_lr=1e-3)
+DBRX_LAYERS, DBRX_BATCH, DBRX_SEQ = 1, 4, 128
+# dbrx's bf16 vs fp32 per-token loss on the tokens whose experts agree:
+# the largest difference and the difference of their means, in nats
+DBRX_TOL = dict(token=0.2, mean=0.02)
+
+
+def flat_grads(tree) -> dict:
+    """path -> leaf of a parameter-layout tree (``/``-joined)."""
+    from repro_torch.optim.adamw import leaves_with_path
+    return {"/".join(p): x for p, x in leaves_with_path(tree)}
+
+
+def leaf_rel_errs(want: dict, got: dict) -> dict:
+    """Each leaf's max abs difference over its largest magnitude in
+    ``want``, on the host."""
+    out = {}
+    for k, w in want.items():
+        w, g = w.detach().float().cpu(), got[k].detach().float().cpu()
+        out[k] = float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
+    return out
+
+
+def loss_and_grads(params, batch, cfg, env):
+    """(loss, grad norm, path -> gradient) of ``forward_loss``."""
+    from repro_torch.models.transformer import forward_loss
+    from repro_torch.optim.adamw import global_norm, value_and_grad
+    loss, g = value_and_grad(lambda p: forward_loss(p, batch, cfg, env),
+                             params)
+    return float(loss), float(global_norm(g)), flat_grads(g)
+
+
+def step0_check(cfg, params, batch, env, log) -> None:
+    """Step 0's loss and gradients on the card held to the port's on the
+    host from the same weights and batch, in fp32 and in bf16
+    (STEP0_TOL, STEP0_RATIO, STEP0_FLOOR)."""
+    from repro_torch.models.transformer import on_device
+    t = time.time()
+    host = on_device(params, "cpu")
+    with Fp32():
+        c32 = loss_and_grads(params, batch, cfg, env)
+        h32 = loss_and_grads(host, batch, cfg, env)
+    c16 = loss_and_grads(params, batch, cfg, env)
+    h16 = loss_and_grads(host, batch, cfg, env)
+    del host
+    e32 = leaf_rel_errs(h32[2], c32[2])
+    e_card = leaf_rel_errs(h32[2], c16[2])
+    e_host = leaf_rel_errs(h32[2], h16[2])
+    over = {k: e_card[k] - STEP0_RATIO * e_host[k] for k in e_card}
+    worst32, worst16 = max(e32, key=e32.get), max(over, key=over.get)
+    log("train_step0", arch=cfg.name, loss_card_fp32=c32[0],
+        loss_host_fp32=h32[0], loss_card_bf16=c16[0], loss_host_bf16=h16[0],
+        grad_norm_card_fp32=c32[1], grad_norm_host_fp32=h32[1],
+        grad_norm_card_bf16=c16[1], grad_norm_host_bf16=h16[1],
+        fp32_worst_leaf=worst32, fp32_worst_rel_err=e32[worst32],
+        bf16_worst_leaf=worst16, bf16_card_rel_err=e_card[worst16],
+        bf16_host_rel_err=e_host[worst16], tol=STEP0_TOL, ratio=STEP0_RATIO,
+        floor=STEP0_FLOOR, s=time.time() - t)
+    check(abs(c32[0] - h32[0]) <= STEP0_TOL["loss"],
+          f"train: fp32 step-0 loss card {c32[0]} vs host {h32[0]}")
+    check(abs(c32[1] - h32[1]) <= STEP0_TOL["gnorm"] * h32[1],
+          f"train: fp32 grad norm card {c32[1]} vs host {h32[1]}")
+    check(e32[worst32] <= STEP0_TOL["leaf"], f"train: fp32 gradient "
+          f"{worst32} {e32[worst32]:.2e} of its largest from the host's")
+    check(abs(c16[0] - h16[0]) <= STEP0_TOL["loss_bf16"],
+          f"train: bf16 step-0 loss card {c16[0]} vs host {h16[0]}")
+    check(over[worst16] <= STEP0_FLOOR, f"train: bf16 gradient {worst16} "
+          f"{e_card[worst16]:.3f} from the host's fp32 one, the host's bf16 "
+          f"{e_host[worst16]:.3f}")
+
+
+def make_loop(step, pipe, params, opt, ckpt_dir, total, ckpt_every=10**9,
+              async_ckpt=True):
+    """A ``TrainLoop`` of ``total`` steps that logs every step."""
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+    return TrainLoop(LoopConfig(total_steps=total, ckpt_every=ckpt_every,
+                                ckpt_dir=ckpt_dir, log_every=1,
+                                async_ckpt=async_ckpt),
+                     step, pipe, params, opt)
+
+
+def step_breakdown(cfg, env, ocfg, params, opt, batch) -> dict:
+    """One training step in its two parts, the loss with its gradients
+    (forward, recompute, backward) and the AdamW update: each part's host
+    ms (ending in a sync) and, from a ``torch.profiler`` trace of it, the
+    kernels it launched and their device ms (kernel rows only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.transformer import forward_loss
+    from repro_torch.optim.adamw import adamw_update, value_and_grad
+    out, grads = {}, None
+
+    def grad():
+        nonlocal grads
+        grads = value_and_grad(lambda p: forward_loss(p, batch, cfg, env),
+                               params)[1]
+
+    def update():
+        adamw_update(grads, opt, params, ocfg)
+
+    for name, fn in (("grad", grad), ("update", update)):
+        torch.cuda.synchronize()
+        t = time.time()
+        fn()
+        torch.cuda.synchronize()
+        out[f"{name}_ms"] = (time.time() - t) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out[f"{name}_kernels"] = kernel_count(prof)
+        out[f"{name}_device_ms"] = kernel_device_us(prof) / 1e3
+    return out
+
+
+def smollm_training(dev, card, log) -> None:
+    """SmolLM-135M whole, as ``launch/train.py --full`` trains it:
+    ``step0_check``, then TRAIN_STEPS steps of ``TrainLoop`` (loss
+    descending by TRAIN_DESCENT, ms a step, tokens/s, peak memory), resume
+    (RESUME_AT steps and a checkpoint, resumed to RESUME_TO, the losses
+    held to the straight run's at RESUME_RTOL) and preemption (SIGUSR1
+    during step PREEMPT_AT: the run ends after it with a checkpoint of
+    the next step)."""
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.transformer import ShardEnv, init_params
+    from repro_torch.optim.adamw import (AdamWConfig, init_opt_state,
+                                         make_train_step)
+    env, cfg = ShardEnv(None), get_config(TRAIN_ARCH)
+    params = init_params(cfg, 0, dev)
+    opt = init_opt_state(params)
+    ocfg = AdamWConfig(peak_lr=TRAIN_LR,
+                       warmup_steps=max(TRAIN_STEPS // 10, 1),
+                       total_steps=TRAIN_STEPS)
+    step = make_train_step(cfg, env, ocfg)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    step0_check(cfg, params, pipe.get_batch(0), env, log)
+
+    root = tempfile.mkdtemp(prefix="fns_train_")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loop = make_loop(step, pipe, params, opt, os.path.join(root, "a"),
+                         TRAIN_STEPS)
+        out = loop.run()
+        losses = [m["loss"] for m in out["metrics"]]
+        ms = statistics.median(loop.step_times[TRAIN_TIMED_FROM:]) * 1e3
+        n_params = sum(p.numel() for p in params.parameters())
+        log("train_smollm", arch=cfg.name, layers=cfg.n_layers,
+            params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+            steps=TRAIN_STEPS, losses=losses, step_ms=ms,
+            first_step_s=loop.step_times[0],
+            tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+            max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            descent=TRAIN_DESCENT, card=card,
+            **step_breakdown(cfg, env, ocfg, loop.params, loop.opt_state,
+                             pipe.get_batch(TRAIN_STEPS)))
+        check(all(map(math.isfinite, losses)), "train: a non-finite loss")
+        check(losses[-1] < losses[0] - TRAIN_DESCENT,
+              f"train: loss {losses[0]:.3f} -> {losses[-1]:.3f} did not "
+              f"descend by {TRAIN_DESCENT}")
+
+        d = os.path.join(root, "b")
+        b1 = make_loop(step, pipe, params, opt, d, RESUME_AT,
+                       ckpt_every=RESUME_AT, async_ckpt=False)
+        t = time.time()
+        b1.run()
+        save_s = time.time() - t - sum(b1.step_times)
+        mb = dir_mb(d)
+        b2 = make_loop(step, pipe, params, opt, d, RESUME_TO)
+        t = time.time()
+        start = b2.try_resume()
+        resume_s = time.time() - t
+        check(start == RESUME_AT, f"train: resumed at step {start}")
+        out_b = b2.run(start_step=start)
+        lb = {m["step"]: m["loss"] for m in out_b["metrics"]}
+        check(sorted(lb) == list(range(RESUME_AT, RESUME_TO)),
+              f"train: the resumed run logged steps {sorted(lb)}")
+        errs = [abs(lb[s] - losses[s]) / abs(losses[s]) for s in lb]
+        log("train_resume", at=RESUME_AT, to=RESUME_TO, ckpt_mb=mb,
+            save_s=save_s, resume_s=resume_s, rel_errs=errs,
+            rtol=RESUME_RTOL, card=card)
+        check(max(errs) <= RESUME_RTOL, f"train: resumed losses "
+              f"{max(errs):.2e} from the straight run's")
+
+        d = os.path.join(root, "c")
+        calls = []
+
+        def step_and_signal(*args):
+            calls.append(1)
+            if len(calls) == PREEMPT_AT + 1:
+                os.kill(os.getpid(), signal.SIGUSR1)
+            return step(*args)
+
+        sigs = (signal.SIGTERM, signal.SIGUSR1)
+        saved = [signal.getsignal(s) for s in sigs]
+        loop = make_loop(step_and_signal, pipe, params, opt, d, TRAIN_STEPS)
+        loop.install_signal_handlers()
+        try:
+            out = loop.run()
+        finally:
+            for s, h in zip(sigs, saved):
+                signal.signal(s, h)
+        latest = ckpt.latest_step(d)
+        log("train_preempt", signal_step=PREEMPT_AT,
+            last_step=out["last_step"], preempted=out["preempted"],
+            latest_step=latest)
+        check(out["preempted"] and out["last_step"] == PREEMPT_AT + 1
+              and latest == out["last_step"],
+              f"train: preemption at step {PREEMPT_AT} gave {out} and a "
+              f"checkpoint of step {latest}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def whisper_serving(cfg, params, env, dev, card, log) -> None:
+    """whisper-small's encoder over WHISPER_FRAMES frames and its decoder:
+    ``prefill`` of GEN_BATCH prompts of GEN_PROMPT tokens (timed), then
+    GEN_NEW greedy ``decode_step``s (timed), the steps in WHISPER_HELD
+    held to ``prefill`` over the longer sequence, in bf16 and in fp32; and
+    the card's prefill of one prompt held to the host's (WHISPER_TOL)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.transformer import (decode_step, on_device,
+                                                prefill)
+    rng = np.random.default_rng(0)
+    frames = rng.standard_normal(
+        (GEN_BATCH, WHISPER_FRAMES, cfg.d_model)).astype(np.float32)
+    prompt = rng.integers(0, cfg.vocab_size,
+                          (GEN_BATCH, GEN_PROMPT)).astype(np.int32)
+
+    def greedy():
+        """Decode-step logits and the tokens they were fed, timed."""
+        torch.cuda.synchronize()
+        t = time.time()
+        logits, cache = prefill(params, {"frames": frames,
+                                         "tokens": prompt}, cfg, env)
+        torch.cuda.synchronize()
+        prefill_ms = (time.time() - t) * 1e3
+        check(cache["k"].shape[2] == cfg.max_decode_len
+              and cache["ck"].shape[2] == WHISPER_FRAMES,
+              f"whisper: cache shapes {cache['k'].shape} {cache['ck'].shape}")
+        toks, outs = [torch.from_numpy(prompt)], []
+        t = time.time()
+        for _ in range(GEN_NEW):
+            nxt = logits[:, -1].argmax(dim=-1, keepdim=True).to(torch.int32)
+            toks.append(nxt.cpu())
+            logits, cache = decode_step(params, cache, {"tokens": nxt}, cfg,
+                                        env)
+            outs.append(logits)
+        torch.cuda.synchronize()
+        return outs, torch.cat(toks, dim=1).numpy(), prefill_ms, \
+            (time.time() - t) * 1e3 / GEN_NEW
+
+    def held(outs, toks):
+        return [logit_rel_err(prefill(params, {
+            "frames": frames, "tokens": toks[:, :GEN_PROMPT + j + 1]},
+            cfg, env)[0], outs[j]) for j in WHISPER_HELD]
+
+    greedy()   # warm-up
+    outs, toks, prefill_ms, step_ms = greedy()
+    check(all(bool(torch.isfinite(o[..., :cfg.vocab_size]).all())
+              for o in outs), "whisper: non-finite decode logits")
+    errs = held(outs, toks)
+    with Fp32():
+        outs32, toks32, _, _ = greedy()
+        errs32 = held(outs32, toks32)
+    one = {"frames": frames[:1], "tokens": prompt[:1]}
+    t = time.time()
+    host = on_device(params, "cpu")
+    err_host = logit_rel_err(prefill(host, one, cfg, env)[0],
+                             prefill(params, one, cfg, env)[0])
+    with Fp32():
+        err_host32 = logit_rel_err(prefill(host, one, cfg, env)[0],
+                                   prefill(params, one, cfg, env)[0])
+    del host
+    log("whisper_serve", arch=cfg.name, frames=WHISPER_FRAMES,
+        batch=GEN_BATCH, prompt=GEN_PROMPT, new=GEN_NEW,
+        prefill_ms=prefill_ms, decode_step_ms=step_ms,
+        tokens_per_s=GEN_BATCH / step_ms * 1e3, decode_rel_err=errs,
+        decode_fp32_rel_err=errs32, host_rel_err=err_host,
+        host_fp32_rel_err=err_host32, host_s=time.time() - t,
+        tol=WHISPER_TOL, card=card)
+    check(max(errs) <= WHISPER_TOL["decode"], f"whisper: bf16 decode vs "
+          f"prefill logits {max(errs):.4f} of the max")
+    check(max(errs32) <= WHISPER_TOL["fp32"], f"whisper: fp32 decode vs "
+          f"prefill logits {max(errs32):.2e} of the max")
+    check(err_host <= WHISPER_TOL["host"], f"whisper: bf16 card vs host "
+          f"prefill logits {err_host:.4f} of the max")
+    check(err_host32 <= WHISPER_TOL["fp32"], f"whisper: fp32 card vs host "
+          f"prefill logits {err_host32:.2e} of the max")
+
+
+def whisper_path(dev, card, log) -> None:
+    """whisper-small whole (``whisper_serving``), then WHISPER_TRAIN_STEPS
+    steps of ``TrainLoop`` on ``TokenPipeline(frontend="frame")`` batches
+    of TRAIN_BATCH x TRAIN_SEQ frames (ms a step, peak memory, the loss
+    descending by WHISPER_DESCENT)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.transformer import ShardEnv, init_params
+    from repro_torch.optim.adamw import (AdamWConfig, init_opt_state,
+                                         make_train_step)
+    env, cfg = ShardEnv(None), get_config(WHISPER_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, dev)
+    whisper_serving(cfg, params, env, dev, card, log)
+    step = make_train_step(cfg, env, AdamWConfig(
+        peak_lr=TRAIN_LR, warmup_steps=max(WHISPER_TRAIN_STEPS // 10, 1),
+        total_steps=WHISPER_TRAIN_STEPS))
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                         frontend="frame", d_model=cfg.d_model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loop = make_loop(step, pipe, params, init_opt_state(params),
+                     tempfile.gettempdir(), WHISPER_TRAIN_STEPS)
+    out = loop.run()
+    losses = [m["loss"] for m in out["metrics"]]
+    ms = statistics.median(loop.step_times[1:]) * 1e3
+    log("whisper_train", arch=cfg.name, batch=TRAIN_BATCH, frames=TRAIN_SEQ,
+        dec_tokens=pipe.get_batch(0)["tokens"].shape[1], losses=losses,
+        step_ms=ms, first_step_s=loop.step_times[0],
+        max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        params=sum(p.numel() for p in params.parameters()),
+        descent=WHISPER_DESCENT, card=card)
+    check(all(map(math.isfinite, losses)), "whisper: a non-finite loss")
+    check(losses[-1] < losses[0] - WHISPER_DESCENT,
+          f"whisper: loss {losses[0]:.3f} -> {losses[-1]:.3f} did not "
+          f"descend by {WHISPER_DESCENT}")
+
+
+def family_step(name, dev, card, log) -> None:
+    """One ``make_train_step`` of ``name`` at full width and FAMILY_LAYERS
+    layers on the card, in fp32, held to the same step on the host
+    (FAMILY_TOL): the loss, the grad norm and each leaf of m (the clipped
+    gradient times 1 - b1); and ``adamw_update`` on the card given the
+    host's gradients, each new parameter held to the host's. The
+    parameters each side's own step gives are logged only: the update
+    m̂ / (√v̂ + eps) is ±1 for large gradients but steep where a gradient
+    times the clip scale is near eps, so a rounding-sized gradient
+    difference there moves a parameter by up to 2 lr. The card's bf16
+    step is logged beside."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.transformer import (ShardEnv, forward_loss,
+                                                init_params, on_device)
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
+                                         init_opt_state, make_train_step,
+                                         tree_map, value_and_grad)
+    env = ShardEnv(None)
+    cfg = dataclasses.replace(get_config(name), n_layers=FAMILY_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, dev)
+    ocfg = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=1, total_steps=10)
+    step = make_train_step(cfg, env, ocfg)
+    batch = TokenPipeline(cfg.vocab_size, FAMILY_BATCH, FAMILY_SEQ,
+                          seed=0).get_batch(0)
+
+    def timed(p):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = step(p, init_opt_state(p), batch)
+        float(out[2]["loss"])
+        return out, (time.time() - t) * 1e3
+
+    timed(params)   # warm-up
+    (_, _, m16), ms16 = timed(params)
+    with Fp32():
+        timed(params)
+        (pc, oc, mc), ms = timed(params)
+        t = time.time()
+        host = on_device(params, "cpu")
+        loss_h, gh = value_and_grad(
+            lambda p: forward_loss(p, batch, cfg, env), host)
+        ph, oh, mh = adamw_update(gh, init_opt_state(host), host, ocfg)
+        host_s = time.time() - t
+        pu = adamw_update(tree_map(lambda g: g.to(dev), gh),
+                          init_opt_state(params), params, ocfg)[0]
+    lr = float(mh["lr"])
+
+    def lr_errs(got):
+        want, got = flat_grads(ph), flat_grads(got)
+        return {k: float((got[k].detach().cpu() - want[k].detach())
+                         .abs().max()) / lr for k in want}
+
+    e_m = leaf_rel_errs(flat_grads(oh["m"]), flat_grads(oc["m"]))
+    e_own, e_upd = lr_errs(pc), lr_errs(pu)
+    worst_m, worst_own = max(e_m, key=e_m.get), max(e_own, key=e_own.get)
+    worst_upd = max(e_upd, key=e_upd.get)
+    loss_c, loss_h = float(mc["loss"]), float(loss_h)
+    gn_c, gn_h = float(mc["grad_norm"]), float(mh["grad_norm"])
+    log("train_family_step", arch=name, layers=FAMILY_LAYERS,
+        params=sum(p.numel() for p in params.parameters()),
+        batch=FAMILY_BATCH, seq=FAMILY_SEQ, loss_card_fp32=loss_c,
+        loss_host_fp32=loss_h, loss_card_bf16=float(m16["loss"]),
+        grad_norm_card=gn_c, grad_norm_host=gn_h, m_worst_leaf=worst_m,
+        m_rel_err=e_m[worst_m], own_step_worst_leaf=worst_own,
+        own_step_param_err_lr=e_own[worst_own], update_worst_leaf=worst_upd,
+        update_param_err_lr=e_upd[worst_upd], step_ms_fp32=ms,
+        step_ms_bf16=ms16, host_s=host_s,
+        max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        tol=FAMILY_TOL, card=card)
+    check(math.isfinite(float(m16["loss"])), f"{name}: bf16 step loss")
+    check(abs(loss_c - loss_h) <= FAMILY_TOL["loss"],
+          f"{name}: fp32 step loss card {loss_c} vs host {loss_h}")
+    check(abs(gn_c - gn_h) <= FAMILY_TOL["leaf"] * gn_h,
+          f"{name}: grad norm card {gn_c} vs host {gn_h}")
+    check(e_m[worst_m] <= FAMILY_TOL["leaf"],
+          f"{name}: m leaf {worst_m} {e_m[worst_m]:.2e} from the host's")
+    check(e_upd[worst_upd] <= FAMILY_TOL["update_lr"],
+          f"{name}: the update of the host's gradients moved {worst_upd} "
+          f"{e_upd[worst_upd]:.2e} lr from the host's")
+
+
+def token_losses(params, batch, cfg):
+    """Each token's loss term of ``forward_loss`` (B, S): the
+    cross-entropy plus the z-loss, from the same layers and head."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import rms_norm, unembed_logits
+    with torch.no_grad():
+        h = tf._stack_forward(params, cfg, tf._embed(params, batch), "train")
+        logits = unembed_logits(rms_norm(h, params.final_norm, cfg.norm_eps),
+                                params.unembed, cfg.vocab_size)
+        lse = torch.logsumexp(logits, dim=-1)
+        labels = tf._ids(params, batch["labels"])
+        gold = logits.gather(-1, labels[..., None])[..., 0]
+        return lse - gold + 1e-4 * lse.square()
+
+
+def dbrx_step(dev, card, log) -> None:
+    """dbrx-132b at full width and DBRX_LAYERS layer: the loss and its
+    gradients in bf16 through the capacity path (no AdamW state: its
+    4.49 B fp32 masters and their gradients take ~36 GB), all finite;
+    then, at a dropless capacity factor (E / k), each token's loss in
+    bf16 held to fp32 on the tokens whose experts agree (DBRX_TOL), the
+    per-token losses' mean checked against ``forward_loss``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.transformer import (ShardEnv, forward_loss,
+                                                init_params)
+    from repro_torch.optim.adamw import global_norm, value_and_grad
+    env = ShardEnv(None)
+    cfg = dataclasses.replace(get_config("dbrx-132b"), n_layers=DBRX_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, dev)
+    batch = TokenPipeline(cfg.vocab_size, DBRX_BATCH, DBRX_SEQ,
+                          seed=0).get_batch(0)
+    torch.cuda.synchronize()
+    t = time.time()
+    loss, grads = value_and_grad(
+        lambda p: forward_loss(p, batch, cfg, env), params)
+    gn = float(global_norm(grads))
+    grad_ms = (time.time() - t) * 1e3
+    finite = all(bool(torch.isfinite(g).all()) for g in flat_grads(grads)
+                 .values())
+    zero = [k for k, g in flat_grads(grads).items() if not g.any()]
+    del grads
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(math.isfinite(float(loss)) and math.isfinite(gn) and finite,
+          "dbrx: non-finite loss or gradient")
+    check(not zero, f"dbrx: zero gradients {zero}")
+    dcfg = dataclasses.replace(cfg,
+                               capacity_factor=cfg.n_experts / cfg.moe_top_k)
+    with Routes() as r16:
+        l16 = token_losses(params, batch, dcfg)
+    with Fp32(), Routes() as r32:
+        l32 = token_losses(params, batch, dcfg)
+        mean32 = float(forward_loss(params, batch, dcfg, env).detach())
+    same = (r16[0].sort(-1).values == r32[0].sort(-1).values).all(-1)
+    same = same.reshape(l16.shape)
+    diff = (l16 - l32).abs()[same]
+    log("train_dbrx_step", arch=cfg.name, layers=DBRX_LAYERS,
+        params=sum(p.numel() for p in params.parameters()),
+        batch=DBRX_BATCH, seq=DBRX_SEQ, loss_bf16=float(loss), grad_norm=gn,
+        grad_ms=grad_ms, max_memory_gb=peak,
+        tokens_same_experts=float(same.float().mean()),
+        token_loss_max_diff=float(diff.max()),
+        mean_loss_bf16=float(l16[same].mean()),
+        mean_loss_fp32=float(l32[same].mean()),
+        fp32_forward_loss=mean32, tol=DBRX_TOL, card=card)
+    check(abs(float(l32.mean()) - mean32) <= 1e-5 * abs(mean32),
+          "dbrx: per-token losses do not average to forward_loss")
+    check(bool(same.any()), "dbrx: no token's experts agree bf16 vs fp32")
+    check(float(diff.max()) <= DBRX_TOL["token"],
+          f"dbrx: bf16 vs fp32 token loss {float(diff.max()):.4f}")
+    check(abs(float(l16[same].mean() - l32[same].mean()))
+          <= DBRX_TOL["mean"], "dbrx: bf16 vs fp32 mean token loss")
+
+
+def train_path(dev, card, log) -> dict:
+    """Training on the card (random weights from ``init_params`` seed 0,
+    one model at a time, each freed before the next):
+    ``smollm_training``, ``whisper_path``, ``family_step`` of hymba and
+    rwkv6, ``dbrx_step``. It launches none of K1-K5. Returns the path's
+    launch counts."""
+    import torch
+
+    from repro_torch.kernels import build
+    t_path = time.time()
+    build.LAUNCHES.clear()
+    parts = [("smollm", lambda: smollm_training(dev, card, log)),
+             ("whisper", lambda: whisper_path(dev, card, log))]
+    parts += [(n, lambda n=n: family_step(n, dev, card, log))
+              for n in FAMILY_STEPS]
+    parts.append(("dbrx", lambda: dbrx_step(dev, card, log)))
+    for name, part in parts:
+        t = time.time()
+        torch.cuda.empty_cache()
+        part()
+        log("train_part", part=name, s=time.time() - t)
+    torch.cuda.empty_cache()
+    launches = path_launches("train", (), log)
+    log("train_path", s=time.time() - t_path)
+    return launches
+
+
 def run(report_path: str | None) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2313,6 +2901,8 @@ def run(report_path: str | None) -> int:
     by_path["rag"] = rag_path(dev, card, log)
     torch.cuda.empty_cache()
     by_path["lm_families"] = lm_families_path(dev, card, log)
+    torch.cuda.empty_cache()
+    by_path["train"] = train_path(dev, card, log)
     # each kernel's launches come from the path it belongs to: K1-K3 from
     # the search, K4 and K5 from the parity gate
     for name, rec in records.items():

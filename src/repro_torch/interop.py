@@ -1,4 +1,5 @@
-"""Carry state across from the JAX reference package to the port.
+"""Carry state across from the JAX reference package to the port, and
+LM training state (parameters, AdamW state) back.
 
 Everything crosses as numpy arrays, read off the reference objects by
 attribute or key (duck typing), so this module imports neither ``jax``
@@ -166,28 +167,111 @@ def sharded_index_from_reference(ref_sidx, device=None) -> ShardedIndex:
         insert_state=None if st is None else insert_state_from_reference(st))
 
 
-def params_from_reference(ref_params, cfg, device=None) -> Transformer:
-    """The reference's LM parameter pytree (leaves stacked under a
-    leading L dim in ``layers``) as the port's ``Transformer`` for
-    ``cfg``, fp32 on ``device`` (None means CUDA): layer l of the port
-    holds slice l of every stacked leaf."""
-    # here, not at the top: the search-side state above needs no LM
-    from repro_torch.models.transformer import Transformer
-    dev = resolve_device(device)
-
-    def leaves(tree):
-        return {k: leaves(v) if isinstance(v, dict) else _np(v, np.float32)
-                for k, v in tree.items()}
+def _port_tree(ref_tree, cfg, dev) -> dict:
+    """A reference LM tree (params, or an AdamW moment of them) in the
+    port's layout on ``dev``: ``layers`` and ``enc_layers`` as lists of
+    per-layer dicts, layer l holding slice l of every stacked leaf."""
+    counts = {"layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers}
 
     def t(x):
-        return torch.from_numpy(x).to(dev)
+        return torch.from_numpy(_np(x, np.float32)).to(dev)
 
     def layer(tree, li):
-        return {k: layer(v, li) if isinstance(v, dict) else t(v[li])
+        return {k: layer(v, li) if isinstance(v, dict) else t(_np(v)[li])
                 for k, v in tree.items()}
 
-    stacked = leaves(ref_params["layers"])
-    tree = {k: t(_np(v, np.float32)) for k, v in ref_params.items()
-            if k != "layers"}
-    tree["layers"] = [layer(stacked, li) for li in range(cfg.n_layers)]
-    return Transformer(cfg, tree)
+    return {k: ([layer(v, li) for li in range(counts[k])] if k in counts
+                else t(v)) for k, v in ref_tree.items()}
+
+
+def params_from_reference(ref_params, cfg, device=None) -> Transformer:
+    """The reference's LM parameter pytree (leaves stacked under a
+    leading L dim in ``layers``, and in ``enc_layers`` for an
+    encoder-decoder) as the port's ``Transformer`` for ``cfg``, fp32 on
+    ``device`` (None means CUDA): layer l of the port holds slice l of
+    every stacked leaf."""
+    # here, not at the top: the search-side state above needs no LM
+    from repro_torch.models.transformer import Transformer
+    return Transformer(cfg, _port_tree(ref_params, cfg,
+                                       resolve_device(device)))
+
+
+def opt_state_from_reference(ref_opt, cfg, device=None) -> dict:
+    """The reference's AdamW state ({"m", "v"} in its parameter layout,
+    an int32 "step") as the port's, on ``device`` (None means CUDA)."""
+    dev = resolve_device(device)
+    return {"m": _port_tree(ref_opt["m"], cfg, dev),
+            "v": _port_tree(ref_opt["v"], cfg, dev),
+            "step": torch.tensor(int(np.asarray(ref_opt["step"])),
+                                 dtype=torch.int32, device=dev)}
+
+
+def _reference_layout(node, leaf, stack):
+    """``node`` (a port tree; a module read through its ``tree()``) in the
+    reference's layout: each list of per-layer trees stacked leaf by leaf
+    under a leading L (``stack``), every other leaf through ``leaf``."""
+    if isinstance(node, torch.nn.Module):
+        node = node.tree()
+    if isinstance(node, dict):
+        return {k: _reference_layout(v, leaf, stack) for k, v in node.items()}
+    if isinstance(node, list):
+        return _stack_trees([_reference_layout(x, leaf, stack)
+                             for x in node], stack)
+    return leaf(node)
+
+
+def _stack_trees(parts: list, stack):
+    if isinstance(parts[0], dict):
+        return {k: _stack_trees([p[k] for p in parts], stack)
+                for k in parts[0]}
+    return stack(parts)
+
+
+def tree_to_reference(tree) -> dict:
+    """A port tree (a ``Transformer``, AdamW state, or a dict holding
+    them) as the reference's pytree layout of host numpy arrays: the
+    layer lists stacked under L. What ``params_from_reference``,
+    ``opt_state_from_reference`` and ``tree_from_reference`` undo, and
+    what the training checkpoints hold (and what the reference's passes
+    and optimizer take)."""
+    return _reference_layout(
+        tree, lambda x: x.detach().cpu().numpy(), np.stack)
+
+
+def reference_shapes(tree) -> dict:
+    """``tree_to_reference``'s structure with each leaf a ``meta`` tensor
+    of its shape and dtype (no copy, no memory): a ``like`` for
+    ``checkpoint.ckpt.restore``."""
+    def leaf(x):
+        return torch.empty(x.shape, dtype=x.dtype, device="meta")
+
+    def stack(xs):
+        return torch.empty((len(xs),) + tuple(xs[0].shape),
+                           dtype=xs[0].dtype, device="meta")
+
+    return _reference_layout(tree, leaf, stack)
+
+
+def tree_from_reference(ref_tree, like, device=None):
+    """A tree in the reference's layout (host arrays, e.g. a restored
+    checkpoint) as a port tree shaped like ``like`` (a new ``Transformer``
+    where ``like`` holds one), each leaf a tensor on ``device`` (None
+    means CUDA) with the reference's dtype."""
+    dev = resolve_device(device)
+
+    def build(ref, node):
+        if isinstance(node, torch.nn.Module):
+            return node.with_tree(build(ref, node.tree()))
+        if isinstance(node, dict):
+            return {k: build(ref[k], v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [build(_slice(ref, li), x) for li, x in enumerate(node)]
+        return torch.from_numpy(_np(ref)).to(dev)
+
+    return build(ref_tree, like)
+
+
+def _slice(ref, li):
+    if isinstance(ref, dict):
+        return {k: _slice(v, li) for k, v in ref.items()}
+    return np.asarray(ref)[li]

@@ -6,8 +6,8 @@ query blocks and an inner loop over KV blocks carry running (max, sum,
 acc), the standard online-softmax recurrence. The reference computes both
 functions in plain jnp outside any Pallas kernel; the port computes the
 same function in plain torch ops (not ``scaled_dot_product_attention``,
-whose blocking and rounding are its own). ``flash_decode_sharded`` waits
-for the multi-GPU port.
+whose blocking and rounding are its own), under autograd for the training
+loss. ``flash_decode_sharded`` waits for the multi-GPU port.
 """
 from __future__ import annotations
 
@@ -42,7 +42,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (query head h reads KV head h // G).
 
     ``q_offset``: absolute position of q[0] (for prefill continuation).
-    Returns (B, Sq, H, hd).
+    Sq and Sk may differ (cross-attention, ``causal=False``). Returns
+    (B, Sq, H, hd).
     """
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -55,7 +56,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{kv_chunk})")
     dev = q.device
     qg = q.reshape(B, Sq, KV, G, hd)
-    out = torch.empty_like(q).reshape(B, Sq, KV, G, hd)
+    outs = []   # one block a query chunk, joined once (no in-place writes
+    # for autograd to track)
     for q0 in range(0, Sq, q_chunk):
         qblk = qg[:, q0:q0 + q_chunk]                       # (B,qc,KV,G,hd)
         q_pos = q_offset + q0 + torch.arange(q_chunk, device=dev)
@@ -78,8 +80,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             m = m_new
         o = acc / torch.clamp(l, min=1e-30)[..., None]
         # (B, KV, G, qc, hd) -> (B, qc, KV, G, hd)
-        out[:, q0:q0 + q_chunk] = o.permute(0, 3, 1, 2, 4).to(q.dtype)
-    return out.reshape(B, Sq, H, hd)
+        outs.append(o.permute(0, 3, 1, 2, 4).to(q.dtype))
+    return torch.cat(outs, dim=1).reshape(B, Sq, H, hd)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -17,15 +17,6 @@ import torch.nn.functional as F
 CDT = torch.bfloat16  # compute dtype
 
 
-def check_family(cfg) -> None:
-    """Raise for the model family the port does not have yet (audio)."""
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP queue 1 item 6); dense, vlm, moe, hybrid and ssm "
-            f"are")
-
-
 def cast(x):
     """fp32 tensors of a (nested dict/list) tree to ``CDT``; others kept."""
     if isinstance(x, dict):
@@ -100,8 +91,11 @@ def unembed_logits(h: torch.Tensor, table: torch.Tensor,
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  z_loss: float = 1e-4) -> torch.Tensor:
-    """Stable token-mean cross-entropy (+ z-loss)."""
-    m = logits.max(dim=-1, keepdim=True).values
+    """Stable token-mean cross-entropy (+ z-loss), differentiated as the
+    reference's: its max is stopped only where it is subtracted, so the
+    gradient of ``lse`` also carries the max's own (split evenly among
+    tied maxima, as ``amax`` and jnp's max split it)."""
+    m = logits.amax(dim=-1, keepdim=True)
     shifted = logits - m.detach()
     lse = torch.log(torch.exp(shifted).sum(dim=-1)) + m[..., 0]
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]

@@ -5,9 +5,10 @@ stacked (leading L) tensors; ``prefill`` allocates its cache here.
 * hybrid (hymba): a K/V ring of ``min(window, S)`` slots + the mamba
   (ssm fp32, conv tail) state;
 * ssm (rwkv6): the matrix-valued wkv state (fp32) + the token-shift
-  tails, O(1) in S.
-
-Whisper's cross K/V comes with the audio family (ROADMAP queue 1 item 6).
+  tails, O(1) in S;
+* audio (whisper): decoder self K/V (``max_decode_len`` positions by
+  default, the reference's layout) + the frozen cross K/V over the
+  encoder's output (the spec's length).
 """
 from __future__ import annotations
 
@@ -16,14 +17,14 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.core.device_atlas import resolve_device
 from repro_torch.models import common
-from repro_torch.models.common import check_family
 from repro_torch.models.mamba import CONV_K
 
 
-def cache_specs(cfg: ArchConfig, spec: ShapeSpec) -> dict:
+def cache_specs(cfg: ArchConfig, spec: ShapeSpec,
+                dec_len: int | None = None) -> dict:
     """Name -> (shape, dtype) of the decode state for ``spec``'s batch
-    and sequence length."""
-    check_family(cfg)
+    and sequence length (for audio, the encoder's: the decoder's K/V
+    holds ``dec_len`` positions, default ``cfg.max_decode_len``)."""
     B, S = spec.global_batch, spec.seq_len
     L, KV, hd, d = cfg.n_layers, cfg.n_kv_heads, cfg.hd, cfg.d_model
     out = {"pos": ((), torch.int32)}
@@ -32,6 +33,13 @@ def cache_specs(cfg: ArchConfig, spec: ShapeSpec) -> dict:
         out.update(wkv=((L, B, H, N, N), torch.float32),
                    shift_tm=((L, B, d), common.CDT),
                    shift_cm=((L, B, d), common.CDT))
+        return out
+    if cfg.family == "audio":
+        C = cfg.max_decode_len if dec_len is None else dec_len
+        out.update(k=((L, B, C, KV, hd), common.CDT),
+                   v=((L, B, C, KV, hd), common.CDT),
+                   ck=((L, B, S, KV, hd), common.CDT),
+                   cv=((L, B, S, KV, hd), common.CDT))
         return out
     W = min(cfg.sliding_window or S, S) if cfg.family == "hybrid" else S
     out.update(k=((L, B, W, KV, hd), common.CDT),
@@ -43,12 +51,14 @@ def cache_specs(cfg: ArchConfig, spec: ShapeSpec) -> dict:
     return out
 
 
-def init_cache(cfg: ArchConfig, spec: ShapeSpec, device=None) -> dict:
+def init_cache(cfg: ArchConfig, spec: ShapeSpec, device=None,
+               dec_len: int | None = None) -> dict:
     """An empty decode state: zeros on ``device`` (None means CUDA) and
     ``pos`` 0 (the port keeps the position a Python int, so decoding
     reads no device scalar)."""
     dev = resolve_device(device)
     out = {name: torch.zeros(shape, dtype=dtype, device=dev)
-           for name, (shape, dtype) in cache_specs(cfg, spec).items()
+           for name, (shape, dtype) in cache_specs(cfg, spec,
+                                                   dec_len).items()
            if name != "pos"}
     return {"pos": 0, **out}

@@ -524,15 +524,20 @@ def test_cache_specs_match_dense_layout():
 
 @pytest.mark.parametrize("name", ["whisper-small"])
 def test_unported_families_raise(name):
+    """No family is left unported (audio came last): whisper initializes
+    with its encoder, its cache specs are the reference's audio layout,
+    and what raises is an audio prefill without the frames its encoder
+    reads."""
+    from repro.models import kvcache as ref_kvcache
     cfg = configs.reduced_config(name)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tf.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        kvcache.cache_specs(cfg, configs.SHAPES["decode_32k"])
-    dense = tf.init_params(configs.reduced_config("smollm-135m"),
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tf.prefill(dense, {"tokens": np.zeros((1, 4), np.int32)}, cfg, ENV)
+    params = tf.init_params(cfg, device="cpu")
+    assert len(params.enc_layers) == cfg.n_enc_layers
+    spec = configs.SHAPES["decode_32k"]
+    assert {k: tuple(v.shape) for k, v in
+            ref_kvcache.cache_specs(cfg, spec).items()} == \
+        {k: shape for k, (shape, _) in kvcache.cache_specs(cfg, spec).items()}
+    with pytest.raises(KeyError, match="frames"):
+        tf.prefill(params, {"tokens": np.zeros((1, 4), np.int32)}, cfg, ENV)
 
 
 def test_shard_env_refuses_a_mesh():
