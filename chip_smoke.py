@@ -14,7 +14,7 @@ mask at k=32) and also at ragged shapes (K1 in its three forms across its
 tile and query-group edges; K4 across its words and grid, at odd and even
 F, v_cap 32 to 1024 and with every clause inactive; K2, K3 and K5 at
 n % 32 != 0 and d % 4 != 0; K5 with no valid id, no pass bit and every
-pass bit), and then drives eight paths, each with the launch counts
+pass bit), and then drives nine paths, each with the launch counts
 cleared just before it and read just after:
 
 * the kernel/plain-version parity gate (``kernels.parity.parity_gate``),
@@ -92,7 +92,28 @@ cleared just before it and read just after:
   of hymba-1.5b and of rwkv6-3b at full width and 2 layers held to the
   host's; dbrx-132b at full width and 1 layer, the loss and gradients
   through the MoE's capacity path (finite, none zero) and its bf16
-  token losses held to fp32 on the tokens whose experts agree.
+  token losses held to fp32 on the tokens whose experts agree;
+* the cost model (``cost_model_path``; it launches none of the five
+  kernels), last: the dry-run CLI (``python -m
+  repro_torch.launch.dryrun``), one process a cell at the lowest
+  priority, traces on ``meta`` beside the corpus build (set-up) and is
+  joined before the first timed phase, so no path runs beside it; it
+  counts every ``cell_plan`` cell of SmolLM-135M and llama3.2-1b's
+  ``decode_32k`` (FLOPs, bytes, peak, ``fits``, the dominant term on the
+  constants the card's name selects) and extrapolates hymba-1.5b's
+  ``prefill_32k`` from two depths (``--accounting``); the path logs the
+  records, then SmolLM-135M's train step (8 x 128, through
+  ``make_train_step``), a prefill (8 x 512) and a decode step (8 at
+  1,024 cached) are counted on ``meta`` and on the card: the same
+  FLOPs, the predicted peak within PEAK_RTOL of
+  ``max_memory_allocated``, each timed (median of COST_TIMED) beside its
+  roofline bound (counted FLOPs, analytic minimum bytes) and ``mfu``,
+  and the two-depth extrapolation equal to the full-depth count;
+  ``HierAtlas`` over the search's corpus exports the flat atlas's
+  device leaves, its anchor seeds pass their predicates inside the
+  clusters it used, and its ``run_queries`` ids pass their predicates
+  with recall@10 within 0.08 of the flat atlas's on the conjunctive
+  Q=64 batch.
 
 Prints the kernels' timings as one JSON line (each record with its
 share of its bound and its time against one PyTorch call, both from this
@@ -105,6 +126,7 @@ measurement (and a profiler breakdown of one batch) to PATH as JSON.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -2849,6 +2871,313 @@ def train_path(dev, card, log) -> dict:
     return launches
 
 
+# -- the cost model (launch/{dryrun,accounting,roofline}.py) and the hier atlas
+
+COST_ARCH = "smollm-135m"
+# dry-run cells, each through the CLI in its own process, all at once:
+# (arch, shape, accounting pass)
+DRY_CELLS = (("smollm-135m", "decode_32k", False),
+             ("smollm-135m", "train_4k", False),
+             ("smollm-135m", "prefill_32k", False),
+             ("llama3.2-1b", "decode_32k", False),
+             ("hymba-1.5b", "prefill_32k", True))
+DRY_TIMEOUT_S = 400  # a 32k prefill traces ~1.7 M ops: about 130 s
+# the real steps held to their meta traces: (kind, sequence, batch); the
+# prefill at 512 tokens, where the default attention chunks and the
+# accounting mode's coincide, so bytes extrapolate exactly too
+COST_STEPS = (("train", 128, 8), ("prefill", 512, 8), ("decode", 1024, 8))
+COST_TIMED = 7       # timed runs of each step (median), after 2 warm-ups
+PEAK_RTOL = 0.15     # predicted peak vs max_memory_allocated
+EXTRAP_RTOL = 1e-9   # two-depth extrapolation vs the full-depth trace
+HIER_Q = "conj_q64"  # the batch the flat and the hierarchical atlas run
+HIER_RECALL_GAP = 0.08
+
+
+class DryRuns:
+    """The dry-run CLI (``python -m repro_torch.launch.dryrun``) on each
+    of DRY_CELLS, one process a cell, all started together at the lowest
+    priority in a scratch directory that holds their ``results/``; each
+    traces on ``meta`` on the host and reads the card's name and memory
+    itself. ``drive_paths`` starts them beside the corpus build (set-up,
+    no path's metric) and ``join``s them before the first timed phase, so
+    no path runs beside them; ``close`` kills any still running and
+    removes the directory."""
+
+    def __init__(self):
+        import tempfile
+        self.t0 = time.time()
+        self.dir = tempfile.mkdtemp(prefix="fns_dryrun_")
+        env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+        self.procs = []
+        for arch, shape, acct in DRY_CELLS:
+            cmd = ["nice", "-n", "19", sys.executable, "-m",
+                   "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                   shape] + (["--accounting"] if acct else [])
+            self.procs.append(subprocess.Popen(
+                cmd, cwd=self.dir, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+
+    def join(self, log) -> list:
+        """Each cell's record once its process has ended; a process that
+        failed, or outran DRY_TIMEOUT_S from the start, fails the
+        smoke."""
+        t = time.time()
+        out = []
+        for (arch, shape, acct), proc in zip(DRY_CELLS, self.procs):
+            left = DRY_TIMEOUT_S - (time.time() - self.t0)
+            try:
+                tail, _ = proc.communicate(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"dryrun {arch} {shape}: still running "
+                                   f"after {DRY_TIMEOUT_S} s") from None
+            log("dryrun_process", arch=arch, shape=shape, accounting=acct,
+                rc=proc.returncode, tail=tail[-2000:])
+            check(proc.returncode == 0,
+                  f"dryrun {arch} {shape}: exit {proc.returncode}")
+            path = os.path.join(self.dir, "results", "torch",
+                                "accounting" if acct else "dryrun",
+                                f"{arch}__{shape}__single.json")
+            with open(path) as f:
+                out.append(dict(arch=arch, shape=shape, accounting=acct,
+                                record=json.load(f)))
+        log("dryrun_join", waited_s=time.time() - t,
+            since_start_s=time.time() - self.t0)
+        return out
+
+    def close(self):
+        import shutil
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def dry_records(runs, chip, card, log) -> None:
+    """The dry-run cells' records (``DryRuns.join``): FLOPs, bytes, peak,
+    ``fits`` and the dominant term, on the constants the card's name
+    selects."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import roofline as rf
+    for run in runs:
+        rec = run["record"]
+        if run["accounting"]:
+            t = rf.roofline_terms(rec["flops"], rec["bytes"],
+                                  rec["wire_bytes"], chip)
+            vals = dict(flops=rec["flops"], bytes=rec["bytes"],
+                        wire_bytes=rec["wire_bytes"], l1=rec["l1"],
+                        l2=rec["l2"], accounting_s=rec["accounting_s"],
+                        dominant=t.dominant, bound_s=t.bound_time_s)
+            mf = rf.model_flops(get_config(run["arch"]), SHAPES[run["shape"]])
+        else:
+            check(rec["chip"] == chip.name and rec["mesh"] == "1xH100",
+                  f"dry-run {run['arch']} {run['shape']}: chip "
+                  f"{rec['chip']} mesh {rec['mesh']}")
+            m, r = rec["memory"], rec["roofline"]
+            vals = dict(flops=rec["flops_per_chip"],
+                        bytes=rec["bytes_per_chip"],
+                        kernel_ops=rec["kernel_ops"],
+                        argument_bytes=m["argument_bytes"],
+                        peak_bytes=m["peak_bytes"], fits=m["fits"],
+                        capacity_bytes=m["capacity_bytes"],
+                        dominant=r["dominant"], compute_s=r["compute_s"],
+                        memory_s=r["memory_s"], trace_s=rec["lower_s"])
+            check(m["fits"] == (m["peak_bytes"] <= m["capacity_bytes"]),
+                  "fits disagrees with the peak")
+            mf = rec["model_flops_global"]
+        check(all(math.isfinite(v) and v > 0
+                  for v in (vals["flops"], vals["bytes"], mf)),
+              f"dry-run {run['arch']} {run['shape']}: non-positive counts")
+        log("dryrun_cell", arch=run["arch"], shape=run["shape"],
+            accounting=run["accounting"], model_flops=mf, chip=chip.name,
+            card=card, **vals)
+
+
+def real_step(cfg, spec, dev, chip, card, log) -> None:
+    """One step traced on ``meta`` and run on the card, both under the
+    counter: the same FLOPs, the predicted peak within PEAK_RTOL of
+    ``max_memory_allocated``; then its time (CUDA events, median of
+    COST_TIMED after 2 warm-ups) beside its roofline bound and ``mfu``.
+    The bound is ``report.terms``': the counted FLOPs and the analytic
+    minimum of bytes (``roofline.analytic_hbm_bytes`` at one card, tp=1);
+    the counted bytes (every eager op's operands, which fusing ops would
+    shrink) give only the diagnostic ``counted_memory_s``."""
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rf
+    meta, pred = dryrun.count_step(*dryrun.step_call(cfg, spec, "meta"))
+    gc.collect()   # earlier paths' garbage, or a collection in the step
+    torch.cuda.empty_cache()   # would free it below the baseline
+    base = torch.cuda.memory_allocated(dev)
+    fn, args = dryrun.step_call(cfg, spec, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    card_c, _ = dryrun.count_step(fn, args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    check(meta.flops == card_c.flops,
+          f"{spec.kind}: meta FLOPs {meta.flops} != card {card_c.flops}")
+    gap = (pred["peak_bytes"] - peak) / peak
+    check(abs(gap) <= PEAK_RTOL,
+          f"{spec.kind}: predicted peak {pred['peak_bytes']} vs "
+          f"max_memory_allocated {peak} ({gap:+.3f})")
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(COST_TIMED):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / 1e3)
+    t_step = statistics.median(times)
+    min_bytes = rf.analytic_hbm_bytes(cfg, spec, 1, tp=1)
+    terms = rf.roofline_terms(card_c.flops, min_bytes, 0.0, chip)
+    mf = rf.model_flops(cfg, spec)
+    log("cost_step", kind=spec.kind, batch=spec.global_batch,
+        seq=spec.seq_len, flops=card_c.flops, meta_flops=meta.flops,
+        bytes=card_c.bytes, meta_bytes=meta.bytes, min_bytes=min_bytes,
+        kernel_ops=card_c.kernel_ops, meta_kernel_ops=meta.kernel_ops,
+        predicted_peak_bytes=pred["peak_bytes"], peak_bytes=peak,
+        peak_gap=gap, step_s=t_step, step_s_all=times,
+        bound_s=terms.bound_time_s, dominant=terms.dominant,
+        compute_s=terms.compute_s, memory_s=terms.memory_s,
+        counted_memory_s=card_c.bytes / chip.hbm_bw,
+        model_flops=mf, mfu=mf / (chip.peak_flops * t_step),
+        bound_share=terms.bound_time_s / t_step, chip=chip.name, card=card)
+    del fn, args
+
+
+def extrapolation_check(cfg, spec, log) -> None:
+    """``accounting_cell``'s two-depth extrapolation (depths 1 and 2, in
+    accounting mode) against the full-depth trace on ``meta``: FLOPs and
+    bytes within EXTRAP_RTOL (at these lengths the accounting mode's
+    attention chunks are the default ones). Both traces run after
+    ``real_step``'s, once the process's one-time copies (the RoPE table
+    on each device) are made."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.accounting import accounting_cell
+    full, _ = dryrun.count_step(*dryrun.step_call(cfg, spec, "meta"))
+    SHAPES[spec.name] = spec
+    try:
+        acct = accounting_cell(cfg.name, spec.name)
+    finally:
+        del SHAPES[spec.name]
+    for key, want in (("flops", full.flops), ("bytes", full.bytes)):
+        err = abs(acct[key] - want) / want
+        log("cost_extrapolation", kind=spec.kind, key=key, full=want,
+            extrapolated=acct[key], rel_err=err, l1=acct["l1"],
+            l2=acct["l2"])
+        check(err <= EXTRAP_RTOL,
+              f"{spec.kind}: extrapolated {key} off by {err:.2e}")
+
+
+def check_hier_seeds(hier, qs, masks) -> None:
+    """Each query's ``select_anchors`` through the hierarchy: every
+    cluster it used matches the predicate in the flat atlas, and every
+    seed passes the predicate, lies in a used cluster and comes once."""
+    import numpy as np
+    flat = hier.flat
+    for qi, q in enumerate(qs):
+        seeds, used = hier.select_anchors(q.vector, q.predicate, set())
+        seeds = np.asarray(seeds, dtype=np.int64)
+        check(bool(np.isin(used, flat.matching_clusters(q.predicate)).all()),
+              f"hier[{qi}]: a used cluster does not match the predicate")
+        check(np.unique(seeds).size == seeds.size, f"hier[{qi}]: dupes")
+        check(bool(masks[qi][seeds].all()),
+              f"hier[{qi}]: a seed fails its predicate")
+        check(bool(np.isin(flat.assign[seeds], used).all()),
+              f"hier[{qi}]: a seed outside the clusters used")
+
+
+def hier_atlas_check(ds, index, batches, dev, card, log) -> None:
+    """``HierAtlas`` over the main corpus: its device export is the flat
+    atlas's; its anchor seeds hold to their predicates and clusters
+    (``check_hier_seeds``); HIER_Q through the sequential ``run_queries``
+    with each atlas returns ids that pass ``check_results``, with recall@10
+    (hier > flat - HIER_RECALL_GAP) and the host anchor scoring time per
+    query (each query's first ``select_anchors``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.hier_atlas import HierAtlas
+    from repro_torch.core.search import FiberIndex, SearchParams, run_queries
+    from repro_torch.data.ground_truth import recall_at_k
+    t = time.time()
+    hier = HierAtlas.build(ds, index.atlas)
+    build_s = time.time() - t
+    got, want = hier.to_device(device=dev), index.atlas.to_device(device=dev)
+    fields = [f for f in vars(want) if torch.is_tensor(getattr(want, f))]
+    check(bool(fields) and all(torch.equal(getattr(got, f), getattr(want, f))
+                               for f in fields) and got.v_cap == want.v_cap,
+          "HierAtlas.to_device differs from the flat atlas's export")
+    del got, want
+    qs = batches[HIER_Q]
+    gts, masks = ground_truth(ds, qs, dev)
+    check_hier_seeds(hier, qs, masks)
+    params = SearchParams(k=K, walk="guided", beam_width=2)
+    out = {}
+    for name, atlas in (("flat", index.atlas), ("hier", hier)):
+        scoring = []
+        for q in qs:
+            t = time.perf_counter()
+            atlas.select_anchors(q.vector, q.predicate, set(),
+                                 vectors=ds.vectors)
+            scoring.append(time.perf_counter() - t)
+        t = time.time()
+        ids, _ = run_queries(FiberIndex(ds.vectors, ds.metadata,
+                                        index.graph, atlas), qs, params)
+        check_results(f"hier_atlas/{name}", ids, masks)
+        out[name] = dict(
+            recall_at_10=float(np.mean([recall_at_k(i, g)
+                                        for i, g in zip(ids, gts)])),
+            search_s=time.time() - t,
+            anchor_ms_per_query=float(np.median(scoring)) * 1e3)
+    log("hier_atlas", n=ds.n, clusters=index.atlas.n_clusters,
+        supers=int(hier.super_centroids.shape[0]), build_s=build_s,
+        batch=HIER_Q, Q=len(qs), card=card, **{
+            f"{k}_{name}": v for name, r in out.items()
+            for k, v in r.items()})
+    check(out["hier"]["recall_at_10"]
+          > out["flat"]["recall_at_10"] - HIER_RECALL_GAP,
+          f"hier recall {out['hier']['recall_at_10']:.3f} vs flat "
+          f"{out['flat']['recall_at_10']:.3f}")
+
+
+def cost_model_path(dry, ds, index, batches, dev, card, log) -> dict:
+    """The cost model on the card: the dry-run records (``dry``, from
+    ``DryRuns.join``; DRY_CELLS on the constants selected by the card's
+    name); SmolLM-135M's train, prefill and decode steps held to their
+    meta traces and to the two-depth extrapolation, timed against their
+    roofline bound; and the hierarchical atlas on the main corpus. It
+    launches none of K1-K5 (the sequential search runs on the host).
+    Returns the path's launch counts."""
+    import torch
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import roofline as rf
+    t_path = time.time()
+    build.LAUNCHES.clear()
+    chip = rf.chip_for(torch.cuda.get_device_name(dev))
+    dry_records(dry, chip, card, log)
+    cfg = get_config(COST_ARCH)
+    for kind, seq, batch in COST_STEPS:
+        spec = ShapeSpec(f"smoke_{kind}", seq, batch, kind)
+        real_step(cfg, spec, dev, chip, card, log)
+        extrapolation_check(cfg, spec, log)
+        torch.cuda.empty_cache()
+    hier_atlas_check(ds, index, batches, dev, card, log)
+    launches = path_launches("cost_model", (), log)
+    log("cost_model_path", s=time.time() - t_path)
+    return launches
+
+
 def run(report_path: str | None) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2876,7 +3205,33 @@ def run(report_path: str | None) -> int:
     log("kernel_build", s=time.time() - t)
     for name in build.KERNELS:  # registers, shared memory, spills
         log("ptxas", kernel=name, report=build.ptxas_report(name))
-    ds, index, held = build_corpus(log)
+    records, profile = drive_paths(dev, card, log, report_path)
+    if report_path:
+        report["profile"] = profile
+        report["kernels"] = list(records.values())
+        os.makedirs(os.path.dirname(os.path.abspath(report_path)),
+                    exist_ok=True)
+        with open(report_path, "w") as f:
+            json.dump(report, f, indent=1, default=float)
+    print(json.dumps({"kernels": list(records.values())}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def drive_paths(dev, card, log, report_path):
+    """Every path after the kernel build, in order; returns the kernel
+    records (launches filled in from the paths' runs) and, with a report,
+    the profile of one batch."""
+    import torch
+    dry = DryRuns()   # host traces beside the corpus build, joined after it
+    try:
+        ds, index, held = build_corpus(log)
+        dry_runs = dry.join(log)
+    finally:
+        dry.close()
     batches = make_batches(ds)
     flush = torch.empty(64 << 20, dtype=torch.int8, device=dev)
     records = kernel_phases(ds, index, batches, dev, flush, log)
@@ -2896,13 +3251,16 @@ def run(report_path: str | None) -> int:
     torch.cuda.empty_cache()
     by_path["serve"] = serve_path(ds, index, held, batches, card_res, dev,
                                   card, log)
-    del ds, index, held, batches, card_res
+    del held, card_res   # the corpus stays for the cost model's atlas
     torch.cuda.empty_cache()
     by_path["rag"] = rag_path(dev, card, log)
     torch.cuda.empty_cache()
     by_path["lm_families"] = lm_families_path(dev, card, log)
     torch.cuda.empty_cache()
     by_path["train"] = train_path(dev, card, log)
+    torch.cuda.empty_cache()
+    by_path["cost_model"] = cost_model_path(dry_runs, ds, index, batches,
+                                            dev, card, log)
     # each kernel's launches come from the path it belongs to: K1-K3 from
     # the search, K4 and K5 from the parity gate
     for name, rec in records.items():
@@ -2910,19 +3268,7 @@ def run(report_path: str | None) -> int:
         rec["launches"] = by_path[path].get(name, 0)
         rec["launches_by_path"] = {p: n.get(name, 0)
                                    for p, n in by_path.items()}
-    if report_path:
-        report["profile"] = profile
-        report["kernels"] = list(records.values())
-        os.makedirs(os.path.dirname(os.path.abspath(report_path)),
-                    exist_ok=True)
-        with open(report_path, "w") as f:
-            json.dump(report, f, indent=1, default=float)
-    print(json.dumps({"kernels": list(records.values())}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return records, profile
 
 
 def main() -> int:

@@ -6,13 +6,15 @@ module-level ``CONFIG: ArchConfig``. ``get_config(name)`` resolves by arch id
 per-arch applicability rules (sub-quadratic requirement for ``long_500k``,
 enc-dec handling for whisper) resolved by ``cell_plan``.
 
-The port's copy has the reference's fields and values; the dry-run's
-``ArchConfig.input_specs`` comes with the ``launch/`` port.
+The port's copy has the reference's fields and values.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Any
+
+import torch
 
 
 # ---------------------------------------------------------------------------
@@ -149,6 +151,47 @@ class ArchConfig:
             total += self.n_enc_layers * (self._attn_params()
                                           + self._ffn_params_per_expert())
         return int(emb + head + total)
+
+    # --- input specs ---------------------------------------------------------
+    def input_specs(self, shape: "str | ShapeSpec") -> dict[str, Any]:
+        """(shape, dtype) records, one for every model input of a shape
+        (a ``SHAPES`` name or a ``ShapeSpec``), as ``models.kvcache.
+        cache_specs`` gives the cache's; the reference returns
+        ``jax.ShapeDtypeStruct``s of the same shapes and dtypes. The
+        dry-run makes them ``meta`` tensors.
+
+        * train:   tokens+labels (or frontend embeds+labels)
+        * prefill: tokens (or embeds)
+        * decode:  one new token + cache shape handled by the step fn itself
+                   (cache specs come from ``models.kvcache.cache_specs``).
+        """
+        spec = shape if isinstance(shape, ShapeSpec) else SHAPES[shape]
+        B, S = spec.global_batch, spec.seq_len
+        i32 = torch.int32
+        bf16 = torch.bfloat16
+        if self.frontend == "frame" and self.n_enc_layers:
+            # enc-dec audio: precomputed frame embeddings + decoder tokens
+            dec_len = (1 if spec.kind == "decode" else
+                       min(max(S // 8, 16), self.max_decode_len - 64))
+            out = {"frames": ((B, S, self.d_model), bf16),
+                   "tokens": ((B, dec_len), i32)}
+            if spec.kind == "train":
+                out["labels"] = ((B, dec_len), i32)
+            return out
+        if self.frontend == "patch":
+            # VLM: precomputed patch embeddings prepended conceptually; the
+            # backbone consumes embeddings directly.
+            out = {"embeds": ((B, S if spec.kind != "decode" else 1,
+                               self.d_model), bf16)}
+            if spec.kind == "train":
+                out["labels"] = ((B, S), i32)
+            return out
+        if spec.kind == "decode":
+            return {"tokens": ((B, 1), i32)}
+        out = {"tokens": ((B, S), i32)}
+        if spec.kind == "train":
+            out["labels"] = ((B, S), i32)
+        return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Outer search loop with anchor restarts (paper Algorithm 2).
 
 Graph-agnostic: works on any ``Graph`` (α-kNN or an HNSW base layer) plus an
-``AnchorAtlas``. The walk procedure is injected (beam / drift-guided).
+``AnchorAtlas`` or a ``HierAtlas``. The walk procedure is injected (beam /
+drift-guided).
 Host numpy and ``heapq`` only, as in the reference: the sequential path
 runs on the CPU whatever device the batched engines use.
 """
@@ -14,6 +15,7 @@ import numpy as np
 
 from repro_torch.core.atlas import AnchorAtlas
 from repro_torch.core.graph import Graph
+from repro_torch.core.hier_atlas import HierAtlas
 from repro_torch.core.predicate import (FilterExpr, as_dnf,
                                        derived_vocab_sizes)
 from repro_torch.core.types import FilterPredicate, Query, SearchStats
@@ -46,7 +48,7 @@ class FiberIndex:
     vectors: np.ndarray
     metadata: np.ndarray
     graph: Graph
-    atlas: AnchorAtlas
+    atlas: AnchorAtlas | HierAtlas
 
     def vocab_sizes(self) -> tuple[int, ...]:
         """Per-field domains for FilterExpr Not/Range lowering, derived

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models import settings
+
 NEG_INF = -1e30
 
 
@@ -48,6 +50,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
+    if settings.UNROLL_SCANS:  # accounting mode: coarse blocks, same FLOPs
+        q_chunk, kv_chunk = settings.ACCT_Q_CHUNK, settings.ACCT_KV_CHUNK
     q_chunk = min(q_chunk, Sq)
     kv_chunk = min(kv_chunk, Sk)
     if Sq % q_chunk or Sk % kv_chunk:

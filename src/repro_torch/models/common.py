@@ -108,7 +108,10 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
 def init_dense(gen: torch.Generator, shape,
                scale: float | None = None) -> torch.Tensor:
     """Normal fp32 weights of std ``scale`` (default 1/sqrt(fan_in)),
-    drawn from ``gen`` on its device."""
+    drawn from ``gen`` on its device; on the ``meta`` device, where no
+    generator draws, the shape alone."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     fan_in = shape[-2] if len(shape) >= 2 else shape[0]
     s = scale if scale is not None else 1.0 / np.sqrt(fan_in)
     return torch.randn(shape, generator=gen, dtype=torch.float32,

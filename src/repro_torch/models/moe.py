@@ -84,11 +84,24 @@ def _fill_buckets(x: torch.Tensor, dest: torch.Tensor, n_buckets: int,
     (``_slots``). Also returns each row's bucket and slot (-1 where
     dropped)."""
     row_bucket, row_slot = _slots(dest, n_buckets, cap)
-    buckets = torch.full((n_buckets, cap) + tuple(x.shape[1:]), fill_value,
-                         dtype=x.dtype, device=x.device)
-    kept = row_bucket >= 0
-    buckets[row_bucket[kept], row_slot[kept]] = x[kept]
-    return buckets, row_bucket, row_slot
+    flat = _scatter_rows(x, torch.where(row_bucket >= 0,
+                                        row_bucket * cap + row_slot, -1),
+                         n_buckets * cap, fill_value)
+    return (flat.reshape((n_buckets, cap) + tuple(x.shape[1:])), row_bucket,
+            row_slot)
+
+
+def _scatter_rows(x: torch.Tensor, dest: torch.Tensor, n: int,
+                  fill_value=0) -> torch.Tensor:
+    """(n, ...) rows of ``fill_value`` with row ``dest[i]`` set to
+    ``x[i]``; a row with ``dest < 0`` goes to one spare row past the end,
+    cut off after. No boolean mask selects the kept rows, so no shape
+    depends on the data (the dry-run traces this on the meta device, and
+    on the card no launch waits for a row count)."""
+    out = torch.full((n + 1,) + tuple(x.shape[1:]), fill_value,
+                     dtype=x.dtype, device=x.device)
+    out[torch.where(dest >= 0, dest, n)] = x
+    return out[:n]
 
 
 def _dispatch(top_ids: torch.Tensor, dims: MoEDims):
@@ -127,17 +140,15 @@ def _moe_capacity(x, params, dims: MoEDims):
     top_ids, weights = _route(xt, params.router, dims)
     cap_e, row_slot, slot_e, eb, es = _dispatch(top_ids, dims)
     kept = row_slot >= 0
-    slot_x = torch.zeros((slot_e.shape[0], d), dtype=x.dtype,
-                         device=x.device)
-    slot_x[row_slot[kept]] = xt.repeat_interleave(k, dim=0)[kept]
-    ex = torch.zeros((dims.n_experts, cap_e, d), dtype=x.dtype,
-                     device=x.device)
+    slot_x = _scatter_rows(xt.repeat_interleave(k, dim=0), row_slot,
+                           slot_e.shape[0])
     valid = eb >= 0
-    ex[eb[valid], es[valid]] = slot_x[valid]
+    ex = _scatter_rows(slot_x, torch.where(valid, eb * cap_e + es, -1),
+                       dims.n_experts * cap_e).reshape(dims.n_experts, cap_e,
+                                                       d)
     ey = _grouped_ffn(ex, params.w1, params.w3, params.w2)
-    slot_y = torch.zeros((slot_e.shape[0], d), dtype=ey.dtype,
-                         device=x.device)
-    slot_y[valid] = ey[eb[valid], es[valid]]
+    slot_y = torch.where(valid[:, None],
+                         ey[eb.clamp(min=0), es.clamp(min=0)], 0)
     y_flat = torch.where(kept[:, None], slot_y[row_slot.clamp(min=0)], 0)
     y = (y_flat.reshape(T, k, d).float() * weights[..., None]).sum(dim=1)
     return y.to(x.dtype).reshape(B, S, d)
@@ -149,7 +160,8 @@ def _moe_replicated(x, params, dims: MoEDims):
     B, S, d = x.shape
     xt = x.reshape(-1, d)
     top_ids, weights = _route(xt, params.router, dims)
-    oh = F.one_hot(top_ids, dims.n_experts).to(xt.dtype)   # (T, k, E)
+    oh = (top_ids[..., None] == torch.arange(
+        dims.n_experts, device=x.device)).to(xt.dtype)      # (T, k, E)
     xe = torch.einsum("td,tke->etd", xt, oh)
     ye = _grouped_ffn(xe, params.w1, params.w3, params.w2)  # (E, T, d)
     y = torch.einsum("etd,tke,tk->td", ye.float(), oh.float(), weights)

@@ -195,6 +195,12 @@ def _init_layer(gen, cfg: ArchConfig, cross: bool = False) -> dict:
     return p
 
 
+class _MetaDraws:
+    """What ``init_params`` reads of a generator on the ``meta`` device,
+    where ``torch.Generator`` does not exist: its device."""
+    device = torch.device("meta")
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Transformer:
     """Random weights from a ``torch.Generator`` seeded with ``seed`` on
     ``device`` (None means CUDA), by the reference's recipe: normal at
@@ -202,8 +208,12 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Transformer:
     embeddings and the router, zeros for the norm scales, and the mamba
     and rwkv6 leaves' own constants (its numbers differ, since jax draws
     its own). An audio config's decoder layers also draw their
-    cross-attention, and its encoder layers come last."""
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    cross-attention, and its encoder layers come last. On the ``meta``
+    device nothing is drawn or allocated: the leaves are shapes alone, the
+    dry-run's stand-ins (``launch/dryrun.py``)."""
+    dev = resolve_device(device)
+    gen = (_MetaDraws() if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     v_pad, d = pad_vocab(cfg.vocab_size), cfg.d_model
     layers = [_init_layer(gen, cfg, cross=cfg.family == "audio")
               for _ in range(cfg.n_layers)]

@@ -14,6 +14,12 @@ from repro_torch.interop import index_from_reference, queries_from_reference
 
 SWEEP_SELS = (0.5, 0.1, 0.02)
 
+# One torch thread a process: the suite runs in several pytest workers at
+# once (each imports every test module, this one with it), and each
+# worker's default pool of one thread per core oversubscribes the cores
+# on the small tensors these tests use.
+torch.set_num_threads(1)
+
 
 def _index(ds):
     graph = build_alpha_knn(ds.vectors, k=16, r_max=48, alpha=1.2)
