@@ -14,8 +14,9 @@ mask at k=32) and also at ragged shapes (K1 in its three forms across its
 tile and query-group edges; K4 across its words and grid, at odd and even
 F, v_cap 32 to 1024 and with every clause inactive; K2, K3 and K5 at
 n % 32 != 0 and d % 4 != 0; K5 with no valid id, no pass bit and every
-pass bit), and then drives nine paths, each with the launch counts
-cleared just before it and read just after:
+pass bit), and then drives ten paths, each with the launch counts
+cleared just before it and read just after (the mesh path in segments
+inside two others):
 
 * the kernel/plain-version parity gate (``kernels.parity.parity_gate``),
   the path of K4 ``filter_eval`` and K5 ``fiber_expand``;
@@ -48,6 +49,19 @@ cleared just before it and read just after:
   (equal staleness, the live service's ids, every surviving inserted row
   findable, no deleted row returned), after which the parity gate runs on
   the card;
+* the search and serving over a device mesh (``mesh``, in segments
+  inside the sharded and serving paths, on their index and snapshot):
+  the sharded path's index on a 1D mesh of four cells and on a 4 x 2
+  data x query mesh, every cell on the one card (``devices=[cuda:0] *
+  n``), the conjunctive Q=64, OR and range batches with each first call
+  of K1-K3 held to its plain version on a cell, ids, walks and hops
+  equal to reference mode's, one dispatch a batch, the conjunctive
+  batch timed beside reference mode in turns; and the serving path's
+  durable snapshot recovered onto a two-cell mesh
+  (``RetrievalService.recover(mesh=)``: an empty slab padded on, the
+  journal replayed into it), its ``query_batch`` equal to reference
+  mode's on the same recovered state and its recall@10 within 0.02 of
+  the meshless recovery's;
 * the LM retrieval bridge (``rag_path``): SmolLM-135M at full width (30
   layers, d 576, 9 heads / 3 KV, vocab 49,152; random weights from a
   seed) encodes 65,536 documents of 64 tokens on the card, 6 categorical
@@ -1224,7 +1238,110 @@ def check_first_calls(seen, label, log) -> None:
     log(label.split("/")[0] + "_kernels", batch=label, **rec)
 
 
-def sharded_path(ds, held, batches, card_res, dev, card, log) -> dict:
+class Segments:
+    """A path driven in segments inside other paths (the mesh path runs
+    inside the sharded and serving paths, on their index and snapshot):
+    each segment runs with the launch counts set to 0 just before it and
+    read just after, into this path's counts, and the enclosing path's
+    counts are put back."""
+
+    def __init__(self, name: str):
+        self.name, self.launches, self.s = name, {}, 0.0
+
+    def run(self, fn):
+        from repro_torch.kernels import build
+        saved = dict(build.LAUNCHES)
+        build.LAUNCHES.clear()
+        t = time.time()
+        out = fn()
+        self.s += time.time() - t
+        for k, v in build.LAUNCHES.items():
+            self.launches[k] = self.launches.get(k, 0) + v
+        build.LAUNCHES.clear()
+        build.LAUNCHES.update(saved)
+        return out
+
+    def finish(self, kernels, log) -> dict:
+        for name in kernels:
+            check(self.launches.get(name, 0) > 0,
+                  f"{self.name} never launched {name}")
+        log(f"{self.name}_launches", **self.launches)
+        log(f"{self.name}_path", s=self.s)
+        return self.launches
+
+
+def mesh_search(sidx, cfg, ref_eng, batches, ref_out, dev, card,
+                log) -> None:
+    """The mesh path's search segment: the sharded path's index on a 1D
+    mesh of N_SHARDS cells, all on the one card, answers the conjunctive
+    Q=64, OR and range batches with the ids, walks and hops of reference
+    mode (``ref_out``) exactly, one dispatch a batch; each batch's first
+    calls of K1-K3 (on shard 0's cell) are held to their plain versions.
+    Reference mode (``ref_eng``) runs the conjunctive batch again right
+    after the mesh, for a time taken beside the mesh's; the batch then
+    runs once more, exactly as well, on an N_SHARDS x 2 data x query mesh
+    (two lanes of 32 queries)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.batched.sharded import ShardedEngine
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_local_mesh, make_serving_mesh
+
+    def same(name, ids, stats):
+        want_ids, want = ref_out[name]
+        return (len(ids) == len(want_ids)
+                and all(np.array_equal(a, b) for a, b in zip(ids, want_ids))
+                and np.array_equal(stats["walks"], want["walks"])
+                and np.array_equal(stats["hops"], want["hops"]))
+
+    def timed(eng, qs):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = eng.search(qs)
+        return out, (time.time() - t) * 1e3
+
+    def record(mesh_name, eng, name, out, ms, **extra):
+        ids, stats = out
+        exact = same(name, ids, stats)
+        log("mesh_search", mesh=mesh_name, batch=name, Q=len(ids),
+            lanes=eng.q_lanes, ms_per_batch=ms, exact=exact,
+            overlap_with_reference_mode=overlap(ids, ref_out[name][0]),
+            syncs=stats["syncs"], card=card, **extra)
+        check(exact, f"mesh {mesh_name} {name}: ids, walks or hops differ "
+                     f"from reference mode's")
+
+    eng = ShardedEngine(sidx, make_local_mesh(N_SHARDS,
+                                              devices=[dev] * N_SHARDS), cfg)
+    checked = set()
+    for name in ("conj_q64", "or_q64", "range_q64"):
+        d0 = eng.dispatches
+        with FirstCalls() as seen:
+            out, ms = timed(eng, batches[name])
+        check(eng.dispatches - d0 == 1, f"mesh data4 {name}: dispatches")
+        after = {}
+        if name == "conj_q64":   # its launches are not the mesh path's
+            saved = dict(build.LAUNCHES)
+            after["reference_mode_ms_after"] = timed(ref_eng,
+                                                     batches[name])[1]
+            build.LAUNCHES.clear()
+            build.LAUNCHES.update(saved)
+        check_first_calls(seen, f"mesh/{name}", log)
+        checked |= set(seen)
+        record("data4", eng, name, out, ms, **after)
+    check(checked == set(SEARCH_KERNELS),
+          f"mesh: kernels never checked on a cell: "
+          f"{sorted(set(SEARCH_KERNELS) - checked)}")
+    qs = batches["conj_q64"]
+    del eng
+    eng = ShardedEngine(sidx, make_serving_mesh(
+        N_SHARDS, 2, devices=[dev] * (2 * N_SHARDS)), cfg)
+    out, ms = timed(eng, qs)
+    check(eng.dispatches == 1, "mesh data4xquery2: dispatches")
+    record("data4xquery2", eng, "conj_q64", out, ms)
+
+
+def sharded_path(ds, held, batches, card_res, dev, card, log,
+                 mesh: Segments) -> dict:
     """The sharded engine in reference mode on the card: the corpus in
     N_SHARDS row shards (capacity for the held-out rows), the conjunctive
     Q=64, OR and range batches through ``ShardedEngine(device="cuda")``
@@ -1232,8 +1349,9 @@ def sharded_path(ds, held, batches, card_res, dev, card, log) -> dict:
     same index on the host), then a live index from the same state (the
     timestamp field left out, as in ``live_index``): SHARD_INSERT held-out
     rows ingested, SHARD_DELETE rows deleted, the survivors findable and
-    the deleted never returned; then the port's two sharded smokes.
-    Returns the path's launch counts."""
+    the deleted never returned; then the port's two sharded smokes. The
+    mesh path's search segment (``mesh_search``) runs on the same index
+    before the live index. Returns the path's launch counts."""
     import numpy as np
     import torch
     from repro_torch.core.batched import insert, lifecycle
@@ -1259,7 +1377,7 @@ def sharded_path(ds, held, batches, card_res, dev, card, log) -> dict:
         clusters=int(sidx.datlas.centroids.shape[1]),
         vectors_mb=sidx.vectors.numel() * 4 / 2**20)
     eng = ShardedEngine(sidx, None, cfg, device=dev)
-    card_ids, checked = {}, set()
+    card_ids, ref_out, checked = {}, {}, set()
     for name in names:
         qs = batches[name]
         # warm-up; the kernels' first calls (on shard 0) are held to their
@@ -1277,6 +1395,7 @@ def sharded_path(ds, held, batches, card_res, dev, card, log) -> dict:
         gt, masks = gts[name]
         check_results(f"sharded/{name}", ids, masks, np.arange(N_PAPER))
         card_ids[name] = ids
+        ref_out[name] = (ids, stats)
         log("sharded_search", batch=name, Q=len(qs), ms_per_batch=ms,
             qps=len(qs) / ms * 1e3,
             recall_at_10=float(np.mean([recall_at_k(r, g)
@@ -1304,6 +1423,8 @@ def sharded_path(ds, held, batches, card_res, dev, card, log) -> dict:
         check(mean >= 0.98, f"sharded {name}: card vs host id-set overlap "
                             f"{mean:.4f} < 0.98")
     del host
+    mesh.run(lambda: mesh_search(sidx, cfg, eng, batches, ref_out, dev,
+                                 card, log))
 
     # the live index: the same slabs without the timestamp field (the
     # insert path refuses codes at or above v_cap), re-emitted on the card
@@ -1365,7 +1486,86 @@ def dir_mb(path: str) -> float:
                for d, _, files in os.walk(path) for f in files) / 2**20
 
 
-def serve_path(ds, index, held, batches, card_res, dev, card, log) -> dict:
+MESH_RECALL_GAP = 0.02   # mesh recovery's recall@10 vs the meshless one's
+
+
+def mesh_recover(root, qs, rec_ids, corpus, live, dev, card, log) -> None:
+    """The mesh path's serving segment: the serving path's durable root
+    (a one-shard snapshot and a journal tail) recovered onto a two-cell
+    mesh on the one card, so ``engine_from_state`` pads an empty slab on
+    and the journal's rows replay into it, as the reference's recovery
+    does. Its ``query_batch`` on the conjunctive Q=64 batch equals
+    reference mode's on the same recovered state (ids, walks, hops), and
+    its recall@10 against exact filtered top-k over the recovered corpus
+    (``corpus``, a Dataset by global id; ``live``, the rows not deleted)
+    is within MESH_RECALL_GAP of the meshless recovery's (``rec_ids``),
+    the reference's own bar for a recovery across meshes
+    (``tests/test_durability.py::test_recover_cross_mesh``). The two
+    recoveries hold different index states (the replayed rows sit in
+    their own shard with their own subgraph, and shard 0's graph lacks
+    their reverse edges), so their ids are compared only in the log."""
+    import numpy as np
+    import torch
+    from repro_torch.core.batched.sharded import (ShardedEngine,
+                                                  index_from_state)
+    from repro_torch.core.types import Dataset
+    from repro_torch.data.ground_truth import recall_at_k
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.serve.retrieval import RetrievalService
+
+    t = time.time()
+    svc = RetrievalService.recover(
+        root, mesh=make_local_mesh(2, devices=[dev, dev]))
+    torch.cuda.synchronize()
+    recover_s = time.time() - t
+    eng = svc._live_engine()
+    check(eng is svc._sharded and eng.n_shards == 2,
+          "mesh recover: not served by the two-shard mesh engine")
+    t = time.time()
+    ids, stats = svc.query_batch(np.stack([q.vector for q in qs]),
+                                 [q.predicate for q in qs])
+    ms = (time.time() - t) * 1e3
+    # the same recovered state in reference mode: exactly the same answer
+    # (its launches are not the mesh path's)
+    saved = dict(build.LAUNCHES)
+    ref = ShardedEngine(index_from_state(eng.state, eng.vocab_sizes,
+                                         device=dev), None, eng.cfg,
+                        device=dev)
+    want_ids, want = ref.search(qs)
+    del ref
+    build.LAUNCHES.clear()
+    build.LAUNCHES.update(saved)
+    check(all(np.array_equal(a, b) for a, b in zip(ids, want_ids))
+          and np.array_equal(stats["walks"], want["walks"])
+          and np.array_equal(stats["hops"], want["hops"]),
+          "mesh recover: ids, walks or hops differ from reference mode's "
+          "on the same recovered state")
+    check_results("mesh/recovered", ids, np.stack(
+        [q.predicate.mask(corpus.metadata, corpus.vocab_sizes)
+         for q in qs]), live)
+    gt, _ = ground_truth(Dataset(corpus.vectors[live],
+                                 corpus.metadata[live], corpus.field_names,
+                                 corpus.vocab_sizes), qs, dev)
+    gt = [live[g] for g in gt]
+    recall = float(np.mean([recall_at_k(r, g) for r, g in zip(ids, gt)]))
+    rec_recall = float(np.mean([recall_at_k(r, g)
+                                for r, g in zip(rec_ids, gt)]))
+    log("mesh_recover", s=recover_s, query_batch_ms=ms,
+        shard_rows=[sh.n_valid for sh in eng.state.shards],
+        recall_at_10=recall, meshless_recall_at_10=rec_recall,
+        overlap_with_meshless=overlap(ids, rec_ids),
+        exact_match_frac=float(np.mean([np.array_equal(a, b)
+                                        for a, b in zip(ids, rec_ids)])),
+        card=card)
+    check(recall >= rec_recall - MESH_RECALL_GAP,
+          f"mesh recover: recall@10 {recall:.4f} more than "
+          f"{MESH_RECALL_GAP} under the meshless recovery's "
+          f"{rec_recall:.4f}")
+
+
+def serve_path(ds, index, held, batches, card_res, dev, card, log,
+               mesh: Segments) -> dict:
     """The serving path (``serve/``): a ``RetrievalService(device="cuda")``
     over the smoke's index (no second build) with capacity for the
     held-out rows answers the conjunctive Q=64, OR and range batches
@@ -1379,8 +1579,9 @@ def serve_path(ds, index, held, batches, card_res, dev, card, log) -> dict:
     once more into the journal only, and ``RetrievalService.recover``
     brings it back: equal staleness, the same ids, every surviving
     inserted row findable, no deleted row returned; then the parity gate
-    runs on the card, as a recovery does. Returns the path's launch
-    counts (K1-K5)."""
+    runs on the card, as a recovery does. The mesh path's serving segment
+    (``mesh_recover``) recovers the same root onto a mesh. Returns the
+    path's launch counts (K1-K5)."""
     import shutil
     import tempfile
 
@@ -1602,6 +1803,10 @@ def serve_path(ds, index, held, batches, card_res, dev, card, log) -> dict:
                                np.setdiff1d(gids, dead), dead, live)
         log("serve_recovered_live", findable=findable,
             deleted=SERVE_DELETE, ok=True)
+        corpus = Dataset(all_vecs, all_meta, ds.field_names[:n_f],
+                         list(vocab))
+        mesh.run(lambda: mesh_recover(root, qs, rec_ids, corpus, live, dev,
+                                      card, log))
         del rec
         torch.cuda.empty_cache()
     finally:
@@ -2466,6 +2671,7 @@ def smollm_training(dev, card, log) -> None:
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.models.transformer import ShardEnv, init_params
+    from repro_torch.launch.dryrun import storage_bytes
     from repro_torch.optim.adamw import (AdamWConfig, init_opt_state,
                                          make_train_step)
     env, cfg = ShardEnv(None), get_config(TRAIN_ARCH)
@@ -2482,6 +2688,10 @@ def smollm_training(dev, card, log) -> None:
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        # held before the loop starts: the parameters and AdamW state the
+        # later loops start from again, which the loop's own steps replace
+        # with new trees (the step is functional)
+        base = torch.cuda.memory_allocated()
         loop = make_loop(step, pipe, params, opt, os.path.join(root, "a"),
                          TRAIN_STEPS)
         out = loop.run()
@@ -2494,6 +2704,8 @@ def smollm_training(dev, card, log) -> None:
             first_step_s=loop.step_times[0],
             tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
             max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            loop_base_gb=base / 1e9,
+            start_state_gb=storage_bytes((params, opt)) / 1e9,
             descent=TRAIN_DESCENT, card=card,
             **step_breakdown(cfg, env, ocfg, loop.params, loop.opt_state,
                              pipe.get_batch(TRAIN_STEPS)))
@@ -3246,11 +3458,13 @@ def drive_paths(dev, card, log, report_path):
     by_path["live_index"] = live_index(ds, index, held, batches, dev, card,
                                        log)
     torch.cuda.empty_cache()
+    mesh = Segments("mesh")
     by_path["sharded"] = sharded_path(ds, held, batches, card_res, dev, card,
-                                      log)
+                                      log, mesh)
     torch.cuda.empty_cache()
     by_path["serve"] = serve_path(ds, index, held, batches, card_res, dev,
-                                  card, log)
+                                  card, log, mesh)
+    by_path["mesh"] = mesh.finish(SEARCH_KERNELS, log)
     del held, card_res   # the corpus stays for the cost model's atlas
     torch.cuda.empty_cache()
     by_path["rag"] = rag_path(dev, card, log)

@@ -65,6 +65,15 @@ class AsyncSave(threading.Thread):
 
     exception: BaseException | None = None
 
+    def run(self) -> None:
+        # the writer is the thread's ``target``, which ``Thread.run``
+        # drops when it returns: a writer that named its own handle would
+        # be a reference cycle holding the host copy of the whole tree
+        try:
+            super().run()
+        except BaseException as e:  # record, surface on next save/wait
+            self.exception = e
+
     def wait(self) -> None:
         self.join()
         if self.exception is not None:
@@ -72,21 +81,26 @@ class AsyncSave(threading.Thread):
                 "async checkpoint write failed") from self.exception
 
 
+def _walk(node, path: tuple, out: dict) -> None:
+    """Add ``node``'s leaves to ``out`` under their flat keys. A
+    module-level recursion, not a closure over ``out``: a self-recursive
+    closure is a reference cycle, so the tree would wait for the garbage
+    collector."""
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk(node[k], path + (str(k),), out)
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            _walk(v, path + (str(i),), out)
+    elif node is not None:
+        out[_SEP.join(path) or "_root"] = node
+
+
 def _flatten(tree) -> dict[str, Any]:
     """Flat key -> leaf, in the reference's leaf order (depth first, dict
     keys sorted)."""
     out: dict[str, Any] = {}
-
-    def walk(node, path):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], path + (str(k),))
-        elif isinstance(node, (list, tuple)):
-            for i, v in enumerate(node):
-                walk(v, path + (str(i),))
-        elif node is not None:
-            out[_SEP.join(path) or "_root"] = node
-    walk(tree, ())
+    _walk(tree, (), out)
     return out
 
 
@@ -174,18 +188,16 @@ def save(ckpt_dir: str, step: int, tree, *, asynchronous: bool = False,
     with _lock:
         _inflight.add(tmp)
     if asynchronous:
-        handle = AsyncSave(daemon=True)
-
-        def _guarded(h=handle):
+        def _guarded():
             try:
                 _write()
-            except BaseException as e:  # record, surface on next save/wait
-                h.exception = e
+            except BaseException as e:  # AsyncSave.run records it
                 with _lock:
                     _inflight.discard(tmp)
                     _async_failures.setdefault(ckpt_dir, e)
+                raise
 
-        handle.run = _guarded  # type: ignore[method-assign]
+        handle = AsyncSave(target=_guarded, daemon=True)
         handle.start()
         return handle
     try:

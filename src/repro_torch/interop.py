@@ -257,18 +257,21 @@ def tree_from_reference(ref_tree, like, device=None):
     checkpoint) as a port tree shaped like ``like`` (a new ``Transformer``
     where ``like`` holds one), each leaf a tensor on ``device`` (None
     means CUDA) with the reference's dtype."""
-    dev = resolve_device(device)
+    return _from_reference(ref_tree, like, resolve_device(device))
 
-    def build(ref, node):
-        if isinstance(node, torch.nn.Module):
-            return node.with_tree(build(ref, node.tree()))
-        if isinstance(node, dict):
-            return {k: build(ref[k], v) for k, v in node.items()}
-        if isinstance(node, list):
-            return [build(_slice(ref, li), x) for li, x in enumerate(node)]
-        return torch.from_numpy(_np(ref)).to(dev)
 
-    return build(ref_tree, like)
+def _from_reference(ref, node, dev):
+    """``tree_from_reference``'s recursion, at module level: a
+    self-recursive closure is a reference cycle, and the tensors it made
+    would wait for the garbage collector."""
+    if isinstance(node, torch.nn.Module):
+        return node.with_tree(_from_reference(ref, node.tree(), dev))
+    if isinstance(node, dict):
+        return {k: _from_reference(ref[k], v, dev) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_from_reference(_slice(ref, li), x, dev)
+                for li, x in enumerate(node)]
+    return torch.from_numpy(_np(ref)).to(dev)
 
 
 def _slice(ref, li):

@@ -51,22 +51,26 @@ def _view(tree):
     return tree.tree() if isinstance(tree, nn.Module) else tree
 
 
+def _walk(node, path: tuple, out: list) -> None:
+    """Append ``node``'s (path, leaf) pairs to ``out``. A module-level
+    recursion, not a closure over ``out``: a self-recursive closure is a
+    reference cycle, so every tree it collected would wait for the
+    garbage collector."""
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk(node[k], path + (str(k),), out)
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            _walk(v, path + (str(i),), out)
+    elif node is not None:
+        out.append((path, node))
+
+
 def leaves_with_path(tree) -> list[tuple[tuple[str, ...], torch.Tensor]]:
     """(path, leaf) pairs in the reference's leaf order: dict keys sorted
     and list positions (as strings), depth first."""
     out: list = []
-
-    def walk(node, path):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], path + (str(k),))
-        elif isinstance(node, (list, tuple)):
-            for i, v in enumerate(node):
-                walk(v, path + (str(i),))
-        elif node is not None:
-            out.append((path, node))
-
-    walk(_view(tree), ())
+    _walk(_view(tree), (), out)
     return out
 
 
@@ -74,20 +78,21 @@ def leaves(tree) -> list[torch.Tensor]:
     return [x for _, x in leaves_with_path(tree)]
 
 
+def _build(node, it):
+    """``node``'s structure with its leaves taken in order from ``it``
+    (module-level for the reason ``_walk`` gives)."""
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(v, it) for v in node)
+    return None if node is None else next(it)
+
+
 def unflatten(like, new_leaves, plain: bool = False):
     """``like``'s structure holding ``new_leaves`` (in ``leaves`` order):
     a new ``Transformer`` for a ``Transformer`` unless ``plain``, which
     gives its tree layout."""
-    it = iter(new_leaves)
-
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        return None if node is None else next(it)
-
-    out = build(_view(like))
+    out = _build(_view(like), iter(new_leaves))
     if isinstance(like, nn.Module) and not plain:
         return like.with_tree(out)
     return out

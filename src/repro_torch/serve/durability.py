@@ -13,11 +13,11 @@ durable with two complementary pieces:
   atomic-rename + per-leaf-CRC format; ``engine_from_state`` rebuilds a
   working engine from it with ZERO graph/atlas rebuild — every derived
   device table (atlas CSR/presence/envelopes, validity bitmaps) is
-  re-*emitted* from the slabs, never re-built. The port
-  restores onto one device only (``mesh=None``): an S-shard state runs in
-  ``ShardedEngine``'s reference mode (bit-identical shard-at-a-time
-  execution); the reference's restores onto a device mesh, and its
-  ``pad_state``, wait for the multi-GPU port. The format is the
+  re-*emitted* from the slabs, never re-built. It restores onto any
+  mesh: an S-shard state goes onto a mesh of S data cells as it is, onto
+  a wider one padded with empty slabs (``pad_state``), and without a
+  mesh (or onto a narrower one) into ``ShardedEngine``'s reference mode
+  (bit-identical shard-at-a-time execution). The format is the
   reference's, byte for byte, so either package recovers the other's
   snapshots and journals.
 
@@ -58,6 +58,8 @@ from repro_torch.core.batched.insert import (HostAtlas, InsertParams,
 from repro_torch.core.batched.sharded import (ShardedEngine,
                                               index_from_state)
 from repro_torch.core.config import FnsConfig, check_state_config
+from repro_torch.launch.mesh import (index_axis_size, lead_device,
+                                     staging_device)
 
 FORMAT = 2  # v2: per-shard liveness masks + lifecycle counters/backlog
 # Record kinds are distinguished by magic so the legacy insert framing is
@@ -314,19 +316,50 @@ def state_from_tree(arrays: dict) -> tuple[InsertState, dict]:
     return state, meta["extra"]
 
 
-# -- engine reconstruction --------------------------------------------------
+# -- cross-mesh engine reconstruction ---------------------------------------
+
+def pad_state(state: InsertState, n_shards: int) -> InsertState:
+    """Grow a restored state to ``n_shards`` by appending EMPTY slabs
+    (n_valid 0, all rows invalid, centroids cloned from shard 0 so the
+    stacked atlas keeps its K). Exact by construction: an empty shard's
+    validity bitmap fails every predicate, and balance-aware placement
+    fills the empty slabs first on subsequent inserts."""
+    s0 = state.shards[0]
+    k = s0.atlas.n_clusters
+    while len(state.shards) < n_shards:
+        atlas = HostAtlas(
+            centroids=s0.atlas.centroids.copy(),
+            assign=np.zeros(s0.cap, np.int32),
+            base_counts=np.zeros(k, np.int64),
+            base_centroids=s0.atlas.centroids.copy())
+        state.shards.append(ShardState(
+            np.zeros_like(s0.vectors),
+            np.full_like(s0.adjacency, -1),
+            np.full_like(s0.metadata, -1),
+            np.full(s0.cap, -1, np.int32), 0, atlas))
+    return state
+
 
 def engine_from_state(state: InsertState, *, mesh=None, config=None,
                       params: BatchedParams | None = None,
                       seed_backend: str | None = None, vocab_sizes=None,
                       device=None):
-    """Reconstruct a live engine on ``device`` (None means CUDA) from a
-    restored state — zero graph/atlas rebuild: a 1-shard state becomes a
-    ``BatchedEngine``; a multi-shard state runs in ``ShardedEngine``'s
-    reference mode (shard-at-a-time execution on the one device, so
-    restoring a 4-shard snapshot keeps the 4-shard search semantics, and
-    with them the recall profile). A non-None ``mesh`` raises: the
-    multi-device engines are not ported.
+    """Reconstruct a live engine from a restored state on whatever mesh
+    this process has — zero graph/atlas rebuild on every path:
+
+    * the mesh's ``data`` axis spans exactly the snapshot's S shards ->
+      ``ShardedEngine`` on the mesh (each host slab placed on its cells);
+    * it spans MORE cells -> pad with empty slabs, then the mesh
+      (exact, see ``pad_state``);
+    * no mesh, or one that spans FEWER cells: a 1-shard state becomes a
+      ``BatchedEngine``; a multi-shard state runs in ``ShardedEngine``'s
+      reference mode (shard-at-a-time execution on one device, so
+      restoring a 4-shard snapshot keeps the 4-shard search semantics,
+      and with them the recall profile).
+
+    Without a mesh everything runs on ``device`` (None means CUDA); with
+    one, ``device`` must be None and the fallback engines run on the
+    mesh's first cell (``launch.mesh.lead_device``).
 
     ``config`` (an ``FnsConfig``) is the one knob source; when given, its
     shape-baked knobs are validated against the state (``ConfigMismatch``
@@ -335,10 +368,7 @@ def engine_from_state(state: InsertState, *, mesh=None, config=None,
     legacy form the engines fold in. ``seed_backend`` lands in the
     engine's ``serve.seed_backend`` knob, the port engines' only seed
     backend switch."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "engine_from_state: restoring onto a device mesh is not "
-            "ported; pass mesh=None to serve every shard on one device")
+    device = lead_device(mesh, device)
     if isinstance(config, FnsConfig):
         check_state_config(
             config, graph_k=state.graph_k, v_cap=state.v_cap,
@@ -346,7 +376,15 @@ def engine_from_state(state: InsertState, *, mesh=None, config=None,
             capacity=sum(sh.cap for sh in state.shards),
             where="engine_from_state")
     eff = config if config is not None else params
-    if len(state.shards) == 1:
+    s = len(state.shards)
+    target = index_axis_size(mesh) if mesh is not None else 1
+    if mesh is not None and target >= s:
+        if target > s:
+            pad_state(state, target)
+        return ShardedEngine(index_from_state(state, vocab_sizes=vocab_sizes,
+                                              device=staging_device(mesh)),
+                             mesh, config=eff, seed_backend=seed_backend)
+    if s == 1:
         eng = BatchedEngine.from_state(state, config=eff, device=device,
                                        vocab_sizes=vocab_sizes)
         if seed_backend is not None:

@@ -11,8 +11,8 @@ This module adds the two pieces that turn the engine's
   bucket OR the oldest ticket has waited ``serve.queue_budget_ms``,
   whichever comes first (classic size-or-deadline batching). Bucket
   targets follow ``query_batch``'s power-of-two rule, rounded up to a
-  multiple of ``q_lanes``, the reference's query-lane count on a 2D mesh
-  (1 here: the port serves from one device).
+  multiple of ``q_lanes``, the serving engine's query-lane count on a
+  2D mesh (1 without one).
 
 * ``ServePipeline`` — the pump. Holds up to ``serve.queue_depth`` batches
   in flight: batch N+1's forming + predicate compilation + pack (host
@@ -125,7 +125,10 @@ class ServePipeline:
     def __init__(self, service, *, clock=time.monotonic):
         self.service = service
         scfg = service._cfg().serve
-        self.queue = AdmissionQueue(scfg, clock=clock)
+        eng = service._live_engine()
+        self.queue = AdmissionQueue(scfg,
+                                    q_lanes=getattr(eng, "q_lanes", 1),
+                                    clock=clock)
         self.depth = max(1, scfg.queue_depth)
         self.clock = clock
         self._inflight: deque[tuple[int, list[Ticket], dict]] = deque()

@@ -4,12 +4,12 @@ over unit vectors, sequentially on the host (``query``) or in batches on
 the device (``query_batch``), with live ingest/delete and crash-consistent
 durability (DESIGN.md §4, §9, §10, §12).
 
-The port's service differs from the reference's in two ways: it takes
-a ``device`` (None means CUDA, and constructing it raises where there is
+The port's service differs from the reference's in one way: it takes a
+``device`` (None means CUDA, and constructing it raises where there is
 none) that every engine it builds or recovers receives, and that
-``EncodedRetriever`` encodes on; and its ``mesh`` must be None (every
-shard serves from the one device; the multi-device engines are not
-ported).
+``EncodedRetriever`` encodes on. With a ``mesh`` (``launch.mesh.Mesh``)
+the device must be None: the sharded engine lives on the mesh's cells,
+and whatever runs off the mesh runs on its first cell.
 """
 from __future__ import annotations
 
@@ -25,11 +25,12 @@ from repro_torch.core.batched.sharded import (ShardedEngine,
                                               build_sharded_index)
 from repro_torch.core.config import (AtlasConfig, FnsConfig, GraphConfig,
                                      ServeConfig, coerce_config)
-from repro_torch.core.device_atlas import resolve_device
 from repro_torch.core.graph import build_alpha_knn
 from repro_torch.core.predicate import FilterExpr
 from repro_torch.core.search import FiberIndex, SearchParams, search
 from repro_torch.core.types import Dataset, FilterPredicate, Query, normalize
+from repro_torch.launch.mesh import (index_axis_size, lead_device,
+                                     query_axis_name, staging_device)
 from repro_torch.models.transformer import (ShardEnv, Transformer, encode,
                                             on_device)
 
@@ -64,8 +65,9 @@ def _engine_state(eng):
 class RetrievalService:
     index: FiberIndex | None
     params: SearchParams
-    # the reference's device mesh; only None is ported (the multi-device
-    # engines and their routing wait for the multi-GPU port)
+    # active mesh: when its "data" axis spans >1 cell (or a query axis
+    # carries >1 lane), query_batch routes to the sharded engine (corpus
+    # row-partitioned, DESIGN.md §7)
     mesh: object | None = None
     graph_build: dict = dataclasses.field(default_factory=dict)
     # row capacity the batched/sharded engines reserve for ``ingest``
@@ -75,7 +77,8 @@ class RetrievalService:
     # (DESIGN.md §11); None = derive lazily from the legacy fields above
     config: FnsConfig | None = None
     # where every engine this service builds or recovers runs: None means
-    # CUDA (raises where there is none), "cpu" the plain kernels
+    # CUDA (raises where there is none), "cpu" the plain kernels; with a
+    # mesh it must be None and becomes the mesh's first cell
     device: object | None = None
     _ds: Dataset | None = dataclasses.field(default=None, repr=False)
     _engine: BatchedEngine | None = dataclasses.field(default=None,
@@ -92,11 +95,7 @@ class RetrievalService:
     _mloop: object | None = dataclasses.field(default=None, repr=False)
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "RetrievalService: serving over a device mesh is not "
-                "ported; pass mesh=None to serve from one device")
-        self.device = resolve_device(self.device)
+        self.device = lead_device(self.mesh, self.device)
 
     @staticmethod
     def build(ds: Dataset, *, config: FnsConfig | None = None,
@@ -131,12 +130,17 @@ class RetrievalService:
                          "r_max": cfg.graph.r_max,
                          "alpha": cfg.graph.alpha,
                          "n_clusters": cfg.atlas.n_clusters})
-        svc._global_index()
+        # a mesh-sharded service uses per-shard graphs/atlases only: defer
+        # the global build so it isn't paid (time + an (n, R) adjacency
+        # held for nothing) unless the sequential path is actually used
+        if svc._mesh_shards() <= 1:
+            svc._global_index()
         return svc
 
     def _global_index(self) -> FiberIndex:
-        """The single-device index (global α-kNN graph + atlas), built
-        once, by ``build``."""
+        """The single-device index (global α-kNN graph + atlas), built on
+        first use — eagerly for unmeshed services, lazily for sharded ones
+        (only ``query``/``engine`` need it there)."""
         if self.index is None:
             gb, ds = self._gb(), self._ds
             graph = build_alpha_knn(ds.vectors, k=gb["graph_k"],
@@ -209,27 +213,47 @@ class RetrievalService:
         # object the benchmarks construct engines from
         return self._cfg().walk
 
+    def _mesh_shards(self) -> int:
+        return index_axis_size(self.mesh) if self.mesh is not None else 1
+
+    def _mesh_parallel(self) -> bool:
+        """True when the mesh warrants the sharded engine: >1 corpus shard
+        on the data axis, or >1 query lane on a query axis (a data=1 2D
+        mesh still wants the mesh engine for query parallelism)."""
+        if self.mesh is None:
+            return False
+        if self._mesh_shards() > 1:
+            return True
+        cfg = self._cfg()
+        return (cfg.mesh.query_parallel and
+                query_axis_name(self.mesh, cfg.mesh.query_axes) is not None)
+
     def _live_engine(self):
-        """The engine the batched paths route to: the one attached by a
-        snapshot restore when there is one (a multi-shard state recovered
-        here serves through the sharded engine's reference mode, not a
-        freshly built global engine), else the global engine."""
+        """The engine the batched paths route to: by mesh shape, except
+        that an engine attached by snapshot restore wins — a multi-shard
+        state recovered onto a meshless process serves through the sharded
+        engine's reference mode, not a freshly built global engine."""
+        if self._mesh_parallel():
+            return self.sharded_engine()
         if self._sharded is not None:
             return self._sharded
         return self.engine()
 
     def sharded_engine(self) -> ShardedEngine:
-        """Lazily-built sharded engine (DESIGN.md §7). The reference
-        partitions the corpus over its mesh's ``data`` axis; with no mesh,
-        as here, that is one shard. Once built, the batched paths route
-        to it."""
+        """Lazily-built sharded engine (DESIGN.md §7): the corpus is
+        re-partitioned row-wise over the mesh ``data`` axis (one shard
+        without a mesh) with per-shard subgraphs/atlases; the per-shard
+        graph builds are each ~S² cheaper than the global one."""
         if self._sharded is None:
             vectors, metadata = self._corpus()
-            sidx = build_sharded_index(vectors, metadata, 1,
-                                       config=self._cfg(),
-                                       device=self.device)
-            self._sharded = ShardedEngine(sidx, None, config=self._cfg(),
-                                          device=self.device)
+            stage = (staging_device(self.mesh) if self.mesh is not None
+                     else self.device)
+            sidx = build_sharded_index(vectors, metadata,
+                                       self._mesh_shards(),
+                                       config=self._cfg(), device=stage)
+            self._sharded = ShardedEngine(
+                sidx, self.mesh, config=self._cfg(),
+                device=None if self.mesh is not None else self.device)
         return self._sharded
 
     def query_batch(self, vectors: np.ndarray,
@@ -244,7 +268,8 @@ class RetrievalService:
         With ``bucket`` (default), the batch is padded to the next
         power-of-two — at least ``MIN_BUCKET``, so singleton arrivals
         share the smallest bucket's shape instead of running at their
-        own — with inert dummy queries (unit basis vector,
+        own, and rounded up to a multiple of the engine's query-lane count
+        on a 2D mesh — with inert dummy queries (unit basis vector,
         ``FilterExpr.never()``: they never seed, walk, or affect the
         loop); results are sliced back to the real queries. An empty batch
         returns ``([], {})`` without touching the engine. Returns (list of
@@ -291,7 +316,12 @@ class RetrievalService:
         queries = [Query(vector=v, predicate=p)
                    for v, p in zip(normalize(vectors), checked)]
         if bucket:
+            lanes = getattr(eng, "q_lanes", 1)
             target = max(MIN_BUCKET, 1 << (q_real - 1).bit_length())
+            # round the bucket UP to a multiple of the query-axis size so
+            # a 2D-mesh dispatch needs no extra lane padding and every
+            # lane walks the same block height (DESIGN.md §13)
+            target = -(-target // lanes) * lanes
             if target > q_real:
                 # unit basis vector, NOT zeros: a zero vector has zero
                 # norm, so cosine normalization would turn it into NaNs
@@ -589,9 +619,10 @@ class RetrievalService:
                 config: FnsConfig | None = None,
                 replay: bool = True, device=None) -> "RetrievalService":
         """Bring a service back from its durability root: load the latest
-        *readable* snapshot, reconstruct the engine on ``device`` (zero
-        graph/atlas rebuild; a multi-shard state in the sharded engine's
-        reference mode), replay the journal suffix
+        *readable* snapshot, reconstruct the engine for ``mesh``, or on
+        ``device`` without one (zero graph/atlas rebuild; cross-mesh via
+        empty-slab padding or reference mode, see ``engine_from_state``),
+        replay the journal suffix
         (``seq > applied_seq``, idempotent) through the normal insert
         path, truncate any torn tail, and serve. Corrupted journal or
         snapshot bytes raise a clean error — they are never served.
@@ -620,7 +651,9 @@ class RetrievalService:
         eng = engine_from_state(state, mesh=mesh, config=cfg,
                                 params=(svc._batched_params()
                                         if cfg is None else None),
-                                vocab_sizes=vocab, device=svc.device)
+                                vocab_sizes=vocab,
+                                device=None if mesh is not None
+                                else svc.device)
         if isinstance(eng, BatchedEngine):
             svc._engine = eng
             svc.index = eng.index  # the sequential path works post-restore

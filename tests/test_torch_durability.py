@@ -1,8 +1,9 @@
 """Crash-consistent serving in the port (``repro_torch.serve.durability``
 through ``RetrievalService``, ``device="cpu"``): snapshot round trip with
 every build entry point boobytrapped, journal replay, multi-shard recovery
-without a mesh, the three in-process fault points and the three SIGKILL
-crashes (a subprocess that imports only the port), corruption detection,
+without a mesh (recovery onto a mesh is ``test_torch_mesh.py``), the
+three in-process fault points and the three SIGKILL crashes (a
+subprocess that imports only the port), corruption detection,
 torn journal records and ingest validation; and recovery across packages
 in both directions (one shard and two), where the recovered service's
 ``query_batch`` ids and ``staleness()`` must equal the writer's.
@@ -186,19 +187,26 @@ def test_recover_multi_shard_without_mesh(ds, queries, tmp_path):
     _assert_same_ids(ids0, eng2.search(queries)[0])
     eng2.insert_batch(*_chunk(ds, 1))
     assert eng2.insert_stats["inserted_rows"] == 2 * CHUNK
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         engine_from_state(state, mesh=object(), device="cpu")
 
 
 def test_mesh_and_missing_cuda_raise(ds, tmp_path, monkeypatch):
-    """A mesh raises ``NotImplementedError``; ``device=None`` means CUDA
-    and raises where there is none, for ``build`` and ``recover`` alike."""
+    """Anything but a ``Mesh`` raises ``TypeError``, and a mesh with a
+    ``device`` ``ValueError`` (the mesh places everything);
+    ``device=None`` without a mesh means CUDA and raises where there is
+    none, for ``build`` and ``recover`` alike."""
     import torch
+
+    from repro_torch.launch.mesh import make_local_mesh
 
     base = Dataset(ds.vectors[:BASE_N], ds.metadata[:BASE_N],
                    ds.field_names, list(ds.vocab_sizes))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         RetrievalService.build(base, mesh=object(), device="cpu", **GRAPH)
+    with pytest.raises(ValueError, match="device=None"):
+        RetrievalService.build(base, mesh=make_local_mesh(
+            2, devices=["cpu"] * 2), device="cpu", **GRAPH)
     svc = _mk_service(ds, BASE_N)
     svc.enable_durability(str(tmp_path))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -206,7 +214,7 @@ def test_mesh_and_missing_cuda_raise(ds, tmp_path, monkeypatch):
         RetrievalService.build(base, **GRAPH)
     with pytest.raises(RuntimeError, match="CUDA"):
         RetrievalService.recover(str(tmp_path))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         RetrievalService.recover(str(tmp_path), mesh=object(), device="cpu")
 
 

@@ -4,9 +4,10 @@ sharded build (stacked arrays and atlas leaves), ``stack_atlases`` /
 ``pad_rows`` / the per-shard view, ``merge_topk`` (ties included), the
 search's ids, walks and hops against the reference's ``search_reference``
 on the selectivity, OR and range sweeps for S in {2, 4} and both seed
-backends, the tiny-corpus exact case, and the device contract (a mesh
-raises, the default device is CUDA). The live sharded index is
-``test_torch_sharded_lifecycle.py``.
+backends, the tiny-corpus exact case, and the device contract (a mesh of
+the wrong size or type raises, the default device is CUDA). The live
+sharded index is ``test_torch_sharded_lifecycle.py``; the mesh engine is
+``test_torch_mesh.py``.
 
 Everything runs on the CPU through the plain PyTorch versions, so exact
 equality is the bar.
@@ -245,16 +246,25 @@ def test_tiny_corpus_many_shards_exact():
 
 
 def test_mesh_device_and_capacity_errors(monkeypatch):
-    """A mesh raises (no multi-device dispatch); a build-once index
-    refuses inserts and deletes; the default device is CUDA, which raises
-    where there is none."""
+    """A mesh whose data axis is not the shard count raises
+    ``ValueError`` (as the reference's does), anything but a ``Mesh``
+    ``TypeError``, and a mesh with a ``device`` ``ValueError``; a
+    build-once index refuses inserts and deletes; the default device is
+    CUDA, which raises where there is none."""
+    from repro_torch.launch.mesh import make_local_mesh
+
     rng = np.random.default_rng(1)
     vecs = normalize(rng.standard_normal((40, 8)))
     meta = rng.integers(0, 3, (40, 2)).astype(np.int32)
     cfg = FnsConfig().with_knobs({"graph.graph_k": 4, "graph.r_max": 8})
     sidx = build_sharded_index(vecs, meta, 2, config=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="2 shards but mesh axis 'data'"):
+        ShardedEngine(sidx, make_local_mesh(4, devices=["cpu"] * 4), cfg)
+    with pytest.raises(TypeError, match="Mesh"):
         ShardedEngine(sidx, object(), cfg, device="cpu")
+    with pytest.raises(ValueError, match="device=None"):
+        ShardedEngine(sidx, make_local_mesh(2, devices=["cpu"] * 2), cfg,
+                      device="cpu")
     eng = ShardedEngine(sidx, None, cfg, device="cpu")
     with pytest.raises(ValueError, match="serve.capacity"):
         eng.insert_batch(vecs[:2], meta[:2])

@@ -558,6 +558,35 @@ def test_loops_leave_the_shared_params(setup, tmp_path):
     assert not any(m.any() for m in adamw.leaves(opt["m"]))
 
 
+def test_training_leaves_no_tensor_to_the_collector(setup, tmp_path):
+    """A warmed ``make_train_step`` step and a ``TrainLoop`` step with a
+    checkpoint, run with the collector off, leave no tensor in cyclic
+    garbage: their memory is freed by reference counting when the step
+    drops it, as JAX frees its buffers, and not at some later
+    collection."""
+    import gc
+
+    step, pipe, params, opt = setup
+    batch = {k: torch.as_tensor(v) for k, v in pipe.get_batch(0).items()}
+    step(params, opt, batch)
+    gc.collect()
+    gc.disable()
+    try:
+        step(params, opt, batch)
+        TrainLoop(LoopConfig(total_steps=1, ckpt_every=1,
+                             ckpt_dir=str(tmp_path)),
+                  step, pipe, params, opt).run()
+        gc.set_debug(gc.DEBUG_SAVEALL)
+        gc.collect()
+        kept = [type(o).__name__ for o in gc.garbage
+                if isinstance(o, torch.Tensor)]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()
+    assert kept == []
+
+
 def test_sigusr1_checkpoints_at_the_step_boundary(setup, tmp_path):
     """With the handlers installed, SIGUSR1 sent during step 3 ends the run
     after that step with a checkpoint of step 4 (``latest_step`` equals
