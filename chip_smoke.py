@@ -14,9 +14,9 @@ mask at k=32) and also at ragged shapes (K1 in its three forms across its
 tile and query-group edges; K4 across its words and grid, at odd and even
 F, v_cap 32 to 1024 and with every clause inactive; K2, K3 and K5 at
 n % 32 != 0 and d % 4 != 0; K5 with no valid id, no pass bit and every
-pass bit), and then drives ten paths, each with the launch counts
+pass bit), and then drives eleven paths, each with the launch counts
 cleared just before it and read just after (the mesh path in segments
-inside two others):
+inside two others, the LM mesh path's retrieval inside the rag path):
 
 * the kernel/plain-version parity gate (``kernels.parity.parity_gate``),
   the path of K4 ``filter_eval`` and K5 ``fiber_expand``;
@@ -76,6 +76,29 @@ inside two others):
   are held to the port's on the host with the same weights (cosine);
   ``ServeEngine.generate`` decodes 16 tokens greedily for 4 prompts of
   32, the same tokens in two calls, the first the card prefill's argmax;
+* the LM's serving over a device mesh (``lm_mesh``), every cell on the
+  card: the rag path's 64 prompts encoded by SmolLM-135M on a 1 x 3 mesh
+  (its 9 / 3 heads, d_ff and padded vocab split three ways) through
+  ``EncodedRetriever.retrieve_batch`` (K1-K3) for the same service, its
+  bf16 embeddings at cosine >= 0.999 to the meshless encoder's and, both
+  encoders in fp32, its ids overlapping the meshless retriever's by at
+  least 0.98; llama3.2-1b at its
+  published widths (16 layers, d 2,048, 32 / 8 heads, d_ff 8,192, vocab
+  128,256) on a 2 x 4 data x model mesh, policy tp: placing its
+  parameters costs at most 1.1x their memory (views of them), its
+  prefill of 8 x 512 tokens held to the meshless prefill on the same
+  parameters in bf16 and fp32, ``ServeEngine.generate`` of 32 greedy
+  tokens whose every token the meshless model, fed them, scores within
+  the bf16 tolerance of its best, ms a prefill, tokens/s and kernels a
+  decode step beside the meshless run's; dbrx-132b at its published
+  widths with 2 of 40 layers on a 1 x 4 mesh (4 experts a cell): a
+  prefill of 4 x 256 through the expert-parallel capacity path (the
+  dropped choices logged) and 4 decode steps through the dropless one,
+  then at one layer the card mesh's prefill and decode held to the same
+  mesh of host cells on the rows whose experts agree, in fp32 and bf16;
+  ``flash_decode_sharded`` at llama's attention widths over a
+  32,768-slot cache split over a 1 x 8 mesh, within 1e-4 of
+  ``decode_attention`` in fp32;
 * the moe, hybrid and ssm LM families (``lm_families_path``), one at a
   time with random weights from a seed: dbrx-132b at its published
   widths with 4 of its 40 layers (d 6,144, 48 / 8 heads, 16 experts top
@@ -140,6 +163,7 @@ measurement (and a profiler breakdown of one batch) to PATH as JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -1978,7 +2002,7 @@ def first_batch(label, retr, prompts, preds, dev, log) -> dict:
     return time_first_calls(seen, label, dev, log)
 
 
-def rag_path(dev, card, log) -> dict:
+def rag_path(dev, card, log, lm_mesh) -> dict:
     """The LM retrieval bridge at SmolLM-135M's full width (30 layers, d
     576, 9 heads / 3 KV, vocab 49,152; random weights from ``init_params``
     with seed 0): RAG_DOCS documents from ``TokenPipeline`` encoded on the
@@ -1995,7 +2019,9 @@ def rag_path(dev, card, log) -> dict:
     RAG_CPU_DOCS card embeddings held to the port on the host with the
     same weights (cosine ≥ RAG_COS); ``ServeEngine.generate`` greedy at
     batch 4, prompt 32, 16 new tokens, equal across two calls, its first
-    token the card prefill's argmax. Returns the path's launch counts."""
+    token the card prefill's argmax. The LM mesh path's retrieval segment
+    (``rag_mesh``, in ``lm_mesh``'s counts) runs on the same service and
+    prompts. Returns the path's launch counts."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2063,6 +2089,8 @@ def rag_path(dev, card, log) -> dict:
     queries = [Query(vector=v, predicate=p) for v, p in zip(q_vecs, preds)]
     gt, masks = ground_truth(ds, queries, dev)
     check_results("rag/q64", ids, masks)
+    lm_mesh.run(lambda: rag_mesh(cfg, params, svc, prompts, preds, ids, dev,
+                                 card, log))
     sels = masks.mean(axis=1)
     recs = np.array([recall_at_k(r, g) for r, g in zip(ids, gt)])
     thirds = np.arange(RAG_Q) * 3 // RAG_Q
@@ -2134,6 +2162,7 @@ FAM_HOST_LAYERS = {"dbrx-132b": 1}   # its host copy at one layer
 FAM_TOL = {"dbrx-132b": dict(decode=0.035, host=0.015, fp32=1e-3),
            "hymba-1.5b": dict(decode=0.11, host=0.10, fp32=1e-3),
            "rwkv6-3b": dict(decode=0.12, host=0.45, fp32=6e-3)}
+RING_LAYERS = 4         # hymba's layers the wrapped-ring check decodes
 HYMBA_DOCS = 16_384     # documents hymba encodes and the service indexes
 HYMBA_BATCH = 128       # documents an encode call
 
@@ -2247,14 +2276,21 @@ def decode_vs_prefill(cfg, params, toks, env):
 
 
 def wrapped_ring(cfg, params, env) -> dict:
-    """A hybrid's decode through its ring, in fp32: a prompt as long as
-    the window W, with room for W more tokens (so the ring has W slots),
-    then W ``decode_step``s, each writing at ``pos % W``, until every slot
-    is overwritten; the last step's logits held to ``prefill`` over all
-    2W tokens within its fp32 FAM_TOL (2W: every slot overwritten once)."""
+    """A hybrid's decode through its ring, in fp32, on its first
+    RING_LAYERS layers (the same weights): a prompt as long as the window
+    W, with room for W more tokens (so the ring has W slots), then W
+    ``decode_step``s, each writing at ``pos % W``, until every slot is
+    overwritten; the last step's logits held to ``prefill`` over all 2W
+    tokens within its fp32 FAM_TOL (2W: every slot overwritten once)."""
+    import dataclasses
+
     import numpy as np
 
     from repro_torch.models.transformer import decode_step, prefill
+    cfg = dataclasses.replace(cfg, n_layers=RING_LAYERS)
+    tree = params.tree()
+    tree["layers"] = tree["layers"][:RING_LAYERS]
+    params = params.with_tree(tree)
     W = cfg.sliding_window
     toks = np.random.default_rng(2).integers(
         0, cfg.vocab_size, (1, 2 * W)).astype(np.int32)
@@ -2271,8 +2307,8 @@ def wrapped_ring(cfg, params, env) -> dict:
     err = logit_rel_err(l_full, l_dec)
     check(err <= FAM_TOL[cfg.name]["fp32"], f"{cfg.name}: fp32 decode "
           f"through a wrapped ring vs prefill logits {err:.2e} of the max")
-    return dict(ring_slots=W, ring_decode_steps=W, ring_fp32_rel_err=err,
-                ring_s=time.time() - t)
+    return dict(ring_slots=W, ring_decode_steps=W, ring_layers=RING_LAYERS,
+                ring_fp32_rel_err=err, ring_s=time.time() - t)
 
 
 def family_checks(cfg, params, dev, card, log) -> None:
@@ -2500,6 +2536,409 @@ def lm_families_path(dev, card, log) -> dict:
     launches = path_launches("lm_families", SEARCH_KERNELS, log)
     log("lm_families_path", s=time.time() - t_path)
     return launches
+
+
+# -- the LM over a device mesh ---------------------------------------------------
+
+MESH_ARCH = "llama3.2-1b"
+MESH_SHAPE = (2, 4)       # data x model cells, every one on the card
+MESH_BATCH, MESH_PROMPT, MESH_NEW = 8, 512, 32
+MESH_MEM = 1.1            # memory after placing, over the parameters'
+MOE_ARCH, MOE_LAYERS = "dbrx-132b", 2   # 2 of 40 layers: ~30 GB of fp32
+MOE_SHAPE = (1, 4)        # 16 experts, 4 a model cell
+MOE_BATCH, MOE_PROMPT, MOE_DECODE = 4, 256, 4
+MOE_HOST_LEN = 16         # prompt tokens the card and host meshes run
+FLASH_HEADS, FLASH_KV, FLASH_HD = 32, 8, 64   # llama3.2-1b's attention
+FLASH_S, FLASH_LEN = 32_768, 20_000           # cache slots, valid ones
+FLASH_SHAPE = (1, 8)
+FLASH_TOL = 1e-4          # fp32, absolute
+RAG_MESH_SHAPE = (1, 3)   # SmolLM's 9 / 3 heads, d_ff, vocab in thirds
+RAG_MESH_OVERLAP = 0.98
+# Logits over a mesh against the meshless pass with the same weights, as
+# shares of the largest logit: bf16 (the summation splits differ: each
+# model cell's partial product is rounded to bf16 before the sum) and
+# fp32; about twice the H100's readings (0.0182 and 4.6e-6, PERF.md
+# section 6).
+MESH_TOL = dict(bf16=0.04, fp32=1e-5)
+
+
+class CellRoutes:
+    """While open, ``models.moe._route`` keeps each call's expert ids by
+    the mesh cell that made them (``placement.current_cell()``), in the
+    cell's call order (its layers, in order), and passes each call
+    through."""
+
+    def __enter__(self):
+        from repro_torch.launch.placement import current_cell
+        from repro_torch.models import moe
+        self.real, self.ids = moe._route, {}
+
+        def route(x, w, dims):
+            ids, weights = self.real(x, w, dims)
+            self.ids.setdefault(current_cell().index, []).append(ids)
+            return ids, weights
+
+        moe._route = route
+        return self.ids
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._route = self.real
+
+
+def same_cell_routes(a: dict, b: dict, B: int):
+    """(B,) bool: the batch rows whose every token chose the same experts
+    in every routing call of two runs on meshes of one shape (``CellRoutes``
+    of each; a call's tokens are its cell's block of the batch, rows
+    major)."""
+    import torch
+    same = torch.ones(B, dtype=torch.bool)
+    n_data = 1 + max(idx[0] for idx in a)
+    b_loc = B // n_data
+    for idx, calls in a.items():
+        for x, y in zip(calls, b[idx]):
+            agree = (x.cpu().sort(-1).values
+                     == y.cpu().sort(-1).values).all(-1)
+            rows = agree.reshape(b_loc, -1).all(-1)
+            same[idx[0] * b_loc:(idx[0] + 1) * b_loc] &= rows
+    return same
+
+
+def a2a_drops(routes: dict, E: int, cf: float) -> tuple[int, int]:
+    """(dropped, all) (token, choice) rows of the expert-parallel
+    capacity path on a 1 x n mesh, from each cell's expert ids
+    (``CellRoutes`` of one prefill): cell j keeps the first ``cap_s``
+    rows bound for each expert cell, and expert cell m the first
+    ``cap_e`` rows it received for each of its experts, as
+    ``moe._a2a_local`` deals them."""
+    import torch
+    n = len(routes)
+    E_loc = E // n
+    dropped = total = 0
+    for layer in range(len(routes[0, 0])):
+        flat = [routes[0, j][layer].reshape(-1).cpu() for j in range(n)]
+        cap_s = int((flat[0].numel() // n) * cf) + 1
+        cap_e = int(n * cap_s // E_loc * cf) + 1
+        for m in range(n):
+            got = torch.cat([f[f // E_loc == m][:cap_s] for f in flat])
+            kept = torch.bincount(got - m * E_loc, minlength=E_loc)
+            dropped -= int(kept.clamp(max=cap_e).sum())
+        total += sum(f.numel() for f in flat)
+    return dropped + total, total
+
+
+def timed_ms(fn):
+    """``fn()``'s result and its milliseconds, the card synchronized
+    after it."""
+    import torch
+    t = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.time() - t) * 1e3
+
+
+def step_kernels(fn) -> int:
+    """Kernels one call of ``fn`` launched on the card (a profiler
+    trace)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return kernel_count(prof)
+
+
+def llama_mesh(dev, card, log) -> None:
+    """llama3.2-1b at its published widths (16 layers, d 2048, 32 / 8
+    heads, d_ff 8,192, vocab 128,256; random weights from ``init_params``
+    with seed 0) on a 2 x 4 data x model mesh of cells on the card,
+    policy tp: placing the parameters takes at most MESH_MEM x their
+    memory (views); the mesh prefill of MESH_BATCH x MESH_PROMPT tokens
+    held to the meshless one on the same parameters in bf16 and fp32
+    (MESH_TOL); ``ServeEngine.generate`` of MESH_NEW greedy tokens over
+    the mesh, each of them teacher-forced through the meshless model's
+    decode and scored there within the bf16 tolerance of its best logit;
+    ms a prefill, tokens/s and kernels a decode step, mesh and
+    meshless."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.transformer import (ShardEnv, decode_step,
+                                                init_params, place_params,
+                                                prefill)
+    from repro_torch.serve.engine import ServeEngine
+    t0 = time.time()
+    cfg = get_config(MESH_ARCH)
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_allocated()
+    params = init_params(cfg, seed=0, device=dev)
+    p_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    env = ShardEnv(make_local_mesh(*MESH_SHAPE,
+                                   devices=[dev] * int(np.prod(MESH_SHAPE))))
+    placed = place_params(params, env)
+    placed_mem = torch.cuda.memory_allocated() - m0
+    check(placed_mem <= MESH_MEM * p_bytes,
+          f"lm_mesh: {placed_mem} bytes after placing {p_bytes} bytes of "
+          f"parameters")
+    one = ShardEnv(None)
+    prompt = {"tokens": np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (MESH_BATCH, MESH_PROMPT)).astype(np.int32)}
+    rec = {}
+    for name, p, e in (("meshless", params, one), ("mesh", placed, env)):
+        prefill(p, prompt, cfg, e)    # warm-up
+        torch.cuda.synchronize()
+        (rec[name], _), rec[name + "_prefill_ms"] = timed_ms(
+            lambda: prefill(p, prompt, cfg, e))
+    err = logit_rel_err(rec["meshless"], rec["mesh"])
+    check(err <= MESH_TOL["bf16"], f"lm_mesh: bf16 mesh vs meshless "
+                                   f"prefill logits {err:.4f} of the max")
+    with Fp32():
+        err32 = logit_rel_err(prefill(params, prompt, cfg, one)[0],
+                              prefill(placed, prompt, cfg, env)[0])
+    check(err32 <= MESH_TOL["fp32"], f"lm_mesh: fp32 mesh vs meshless "
+                                     f"prefill logits {err32:.2e} of the max")
+
+    eng = ServeEngine(cfg, env, placed)
+    out, gen_ms = timed_ms(lambda: eng.generate(prompt["tokens"],
+                                                max_new=MESH_NEW))
+    eng1 = ServeEngine(cfg, one, params, device=dev)
+    out1, gen1_ms = timed_ms(lambda: eng1.generate(prompt["tokens"],
+                                                   max_new=MESH_NEW))
+    check(out.shape == (MESH_BATCH, MESH_NEW)
+          and bool((out < cfg.vocab_size).all()), "lm_mesh: generated ids")
+    # the meshless model fed the mesh's tokens: each within the bf16
+    # tolerance of that step's best logit
+    logits, cache = prefill(params, prompt, cfg, one,
+                            cache_len=MESH_PROMPT + MESH_NEW)
+    gaps = []
+    for t in range(MESH_NEW):
+        last = logits[:, -1].float()
+        best = last.max(dim=-1).values
+        chose = last.gather(1, out[:, t:t + 1].long())[:, 0]
+        gaps.append(float(((best - chose) / last.abs().max()).max()))
+        if t + 1 < MESH_NEW:
+            logits, cache = decode_step(params, cache,
+                                        {"tokens": out[:, t:t + 1]}, cfg,
+                                        one)
+    check(max(gaps) <= MESH_TOL["bf16"], f"lm_mesh: a mesh token "
+          f"{max(gaps):.4f} of the max below the meshless best")
+    _, cache = prefill(placed, prompt, cfg, env, cache_len=MESH_PROMPT + 1)
+    _, cache1 = prefill(params, prompt, cfg, one, cache_len=MESH_PROMPT + 1)
+    step = {"tokens": out[:, :1]}
+    k_mesh = step_kernels(lambda: decode_step(placed, cache, step, cfg, env))
+    k_one = step_kernels(lambda: decode_step(params, cache1, step, cfg, one))
+    log("lm_mesh_llama", arch=cfg.name, mesh=list(MESH_SHAPE), policy="tp",
+        layers=cfg.n_layers, d=cfg.d_model, params_gb=p_bytes / 1e9,
+        placed_over_params=placed_mem / p_bytes,
+        prefill_tokens=MESH_BATCH * MESH_PROMPT,
+        prefill_ms=rec["mesh_prefill_ms"],
+        meshless_prefill_ms=rec["meshless_prefill_ms"],
+        prefill_rel_err=err, prefill_fp32_rel_err=err32,
+        tol=MESH_TOL, new=MESH_NEW,
+        tokens_per_s=MESH_BATCH * MESH_NEW / (gen_ms / 1e3),
+        meshless_tokens_per_s=MESH_BATCH * MESH_NEW / (gen1_ms / 1e3),
+        tokens_equal_share=float((out == out1).float().mean()),
+        teacher_forced_max_gap=max(gaps),
+        decode_step_kernels=k_mesh, meshless_decode_step_kernels=k_one,
+        max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        generate_s=gen_ms / 1e3, s=time.time() - t0, card=card)
+
+
+def dbrx_mesh(dev, card, log) -> None:
+    """dbrx-132b at its published widths with MOE_LAYERS of its 40 layers
+    on a 1 x 4 mesh of cells on the card (16 experts, 4 a cell): a
+    prefill of MOE_BATCH x MOE_PROMPT through the expert-parallel
+    capacity path (``_moe_a2a``; the (token, choice) rows it drops
+    logged) and MOE_DECODE decode steps through the dropless one
+    (``_moe_replicated``), finite; then, at one layer, the card mesh's
+    prefill of a MOE_HOST_LEN-token prompt and two decode steps held to
+    the same 1 x 4 mesh of host cells with the same weights, on the rows
+    whose experts agree in every call (``same_cell_routes``; at least
+    half of them), in fp32 and in bf16 within dbrx's FAM_TOL."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.transformer import (ShardEnv, decode_step,
+                                                init_params, on_device,
+                                                place_params, prefill)
+    t0 = time.time()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    cells = int(np.prod(MOE_SHAPE))
+    env = ShardEnv(make_local_mesh(*MOE_SHAPE, devices=[dev] * cells))
+    torch.cuda.empty_cache()
+    params = place_params(init_params(cfg, seed=0, device=dev), env)
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT + MOE_DECODE)
+    ).astype(np.int32)
+    prompt = {"tokens": toks[:, :MOE_PROMPT]}
+    prefill(params, prompt, cfg, env)   # warm-up
+    torch.cuda.synchronize()
+    with CellRoutes() as routes:
+        (logits, cache), prefill_ms = timed_ms(lambda: prefill(
+            params, prompt, cfg, env, cache_len=MOE_PROMPT + MOE_DECODE))
+    dropped, rows = a2a_drops(routes, cfg.n_experts, cfg.capacity_factor)
+    check(bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()),
+          "lm_mesh: dbrx mesh prefill logits")
+    dec_ms = []
+    for t in range(MOE_DECODE):
+        (logits, cache), ms = timed_ms(lambda: decode_step(
+            params, cache, {"tokens": toks[:, MOE_PROMPT + t:][:, :1]}, cfg,
+            env))
+        dec_ms.append(ms)
+        check(bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()),
+              f"lm_mesh: dbrx mesh decode step {t} logits")
+    del params, cache, logits
+    torch.cuda.empty_cache()
+
+    t_host = time.time()
+    cfg1 = dataclasses.replace(cfg, n_layers=1)
+    card1 = init_params(cfg1, seed=0, device=dev)
+    host_env = ShardEnv(make_local_mesh(*MOE_SHAPE, devices=["cpu"] * cells))
+    card1, host = (place_params(card1, env),
+                   place_params(on_device(card1, "cpu"), host_env))
+    short = toks[:, :MOE_HOST_LEN + 2]
+    errs = {}
+    for mode in ("fp32", "bf16"):
+        runs = []
+        with (Fp32() if mode == "fp32" else contextlib.nullcontext()):
+            for p, e in ((card1, env), (host, host_env)):
+                out = []
+                with CellRoutes() as r:
+                    lg, c = prefill(p, {"tokens": short[:, :MOE_HOST_LEN]},
+                                    cfg1, e, cache_len=MOE_HOST_LEN + 2)
+                    out.append(lg.cpu())
+                    for t in range(2):
+                        lg, c = decode_step(p, c, {"tokens": short[
+                            :, MOE_HOST_LEN + t:MOE_HOST_LEN + t + 1]},
+                            cfg1, e)
+                        out.append(lg.cpu())
+                runs.append((out, r))
+        (card_out, rc), (host_out, rh) = runs
+        same = same_cell_routes(rc, rh, MOE_BATCH)
+        check(int(same.sum()) >= MOE_BATCH // 2,
+              f"lm_mesh: dbrx {mode}: {int(same.sum())} of {MOE_BATCH} "
+              f"rows' experts agree between card and host")
+        errs[mode] = [logit_rel_err(h[same], g[same])
+                      for h, g in zip(host_out, card_out)]
+        errs[mode + "_rows_same_experts"] = float(same.float().mean())
+    tol = FAM_TOL[MOE_ARCH]
+    check(max(errs["fp32"]) <= tol["fp32"], f"lm_mesh: dbrx fp32 card vs "
+          f"host mesh logits {max(errs['fp32']):.2e} of the max")
+    check(max(errs["bf16"]) <= tol["host"], f"lm_mesh: dbrx bf16 card vs "
+          f"host mesh logits {max(errs['bf16']):.4f} of the max")
+    log("lm_mesh_dbrx", arch=cfg.name, mesh=list(MOE_SHAPE),
+        layers=cfg.n_layers, experts=cfg.n_experts,
+        prefill_tokens=MOE_BATCH * MOE_PROMPT, prefill_ms=prefill_ms,
+        dropped_choices=dropped, choices=rows,
+        dropped_share=dropped / rows, decode_ms=dec_ms,
+        host_layers=1, host_tokens=MOE_HOST_LEN,
+        host_rel_err=errs, host_tol=tol, host_s=time.time() - t_host,
+        s=time.time() - t0, card=card)
+
+
+def flash_mesh(dev, card, log) -> None:
+    """``flash_decode_sharded`` at llama3.2-1b's attention widths (B = 1,
+    32 / 8 heads, hd 64) over a FLASH_S-slot cache, FLASH_LEN of them
+    valid, split over a 1 x 8 mesh of cells on the card: within FLASH_TOL
+    of ``decode_attention`` in fp32; both timed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.attention import (decode_attention,
+                                              flash_decode_sharded)
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((1, 1, FLASH_HEADS, FLASH_HD), generator=g, device=dev)
+    k, v = (torch.randn((1, FLASH_S, FLASH_KV, FLASH_HD), generator=g,
+                        device=dev) for _ in range(2))
+    mesh = make_local_mesh(*FLASH_SHAPE,
+                           devices=[dev] * int(np.prod(FLASH_SHAPE)))
+
+    def sharded():
+        return flash_decode_sharded(q, k, v, FLASH_LEN, mesh=mesh,
+                                    seq_axis="model")
+
+    def plain():
+        return decode_attention(q, k, v, FLASH_LEN)
+
+    sharded(), plain()   # warm-up
+    torch.cuda.synchronize()
+    got, ms = timed_ms(sharded)
+    want, plain_ms = timed_ms(plain)
+    err = float((got - want).abs().max())
+    check(err <= FLASH_TOL, f"lm_mesh: flash decode vs decode_attention "
+                            f"{err:.2e}")
+    log("lm_mesh_flash", mesh=list(FLASH_SHAPE), heads=FLASH_HEADS,
+        kv_heads=FLASH_KV, hd=FLASH_HD, slots=FLASH_S, cache_len=FLASH_LEN,
+        max_abs_err=err, ms=ms, decode_attention_ms=plain_ms, card=card)
+
+
+def rag_mesh(cfg, params, svc, prompts, preds, ids, dev, card, log) -> None:
+    """The rag path's prompts encoded on a 1 x 3 mesh of cells on the card
+    (SmolLM-135M's 9 heads, 3 KV heads, d_ff and padded vocab split three
+    ways) for the same meshless service, through ``EncodedRetriever.
+    retrieve_batch`` (K1-K3): in bf16, the embeddings at cosine >= RAG_COS
+    to the meshless encoder's and the ids' overlap with the meshless
+    run's (``ids``) logged; in fp32 (``Fp32``, both encoders), the ids
+    overlapping the meshless retriever's by at least RAG_MESH_OVERLAP.
+    In bf16 the two encoders round their row-parallel sums apart, and the
+    walk carries a query that moved by that much to other near-tied rows
+    (ids are not held there, as the card is not held to the host by ids
+    but by cosine)."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.transformer import ShardEnv
+    from repro_torch.serve.retrieval import EncodedRetriever
+    env = ShardEnv(make_local_mesh(*RAG_MESH_SHAPE, devices=[dev] * int(
+        np.prod(RAG_MESH_SHAPE))))
+    retr = EncodedRetriever(cfg, env, params, svc)
+    one = EncodedRetriever(cfg, ShardEnv(None), params, svc)
+    (got, stats), ms = timed_ms(lambda: retr.retrieve_batch(prompts, preds))
+    cos = (retr.embed_tokens(prompts) * one.embed_tokens(prompts)).sum(1)
+    check(float(cos.min()) >= RAG_COS, f"lm_mesh: mesh vs meshless "
+                                       f"embedding cosine {cos.min():.5f}")
+    with Fp32():
+        got32, _ = retr.retrieve_batch(prompts, preds)
+        saved = dict(build.LAUNCHES)   # the meshless run is not this path's
+        want32, _ = one.retrieve_batch(prompts, preds)
+        build.LAUNCHES.clear()
+        build.LAUNCHES.update(saved)
+    share32 = overlap(want32, got32)
+    check(share32 >= RAG_MESH_OVERLAP, f"lm_mesh: fp32 mesh-encoded "
+                                       f"retrieve_batch ids overlap "
+                                       f"{share32:.4f}")
+    log("lm_mesh_rag", arch=cfg.name, mesh=list(RAG_MESH_SHAPE), Q=len(ids),
+        ms=ms, overlap_bf16=overlap(ids, got), overlap_fp32=share32,
+        exact_fp32=float(np.mean([np.array_equal(a, b)
+                                  for a, b in zip(want32, got32)])),
+        min_cos=float(cos.min()), walks=float(stats["walks"].mean()),
+        card=card)
+
+
+def lm_mesh_path(dev, card, log) -> None:
+    """The LM's serving over a device mesh, every cell on the card
+    (``devices=[cuda:0] * n``): ``llama_mesh``, ``dbrx_mesh`` and
+    ``flash_mesh``, one after another (the rag path runs ``rag_mesh``,
+    this path's K1-K3 segment, on its service)."""
+    import torch
+    t = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    llama_mesh(dev, card, log)
+    torch.cuda.empty_cache()
+    dbrx_mesh(dev, card, log)
+    torch.cuda.empty_cache()
+    flash_mesh(dev, card, log)
+    log("lm_mesh_models", s=time.time() - t)
 
 
 # -- the training path ---------------------------------------------------------
@@ -3467,7 +3906,11 @@ def drive_paths(dev, card, log, report_path):
     by_path["mesh"] = mesh.finish(SEARCH_KERNELS, log)
     del held, card_res   # the corpus stays for the cost model's atlas
     torch.cuda.empty_cache()
-    by_path["rag"] = rag_path(dev, card, log)
+    lm_mesh = Segments("lm_mesh")   # its retrieval inside the rag path
+    by_path["rag"] = rag_path(dev, card, log, lm_mesh)
+    torch.cuda.empty_cache()
+    lm_mesh.run(lambda: lm_mesh_path(dev, card, log))
+    by_path["lm_mesh"] = lm_mesh.finish(SEARCH_KERNELS, log)
     torch.cuda.empty_cache()
     by_path["lm_families"] = lm_families_path(dev, card, log)
     torch.cuda.empty_cache()

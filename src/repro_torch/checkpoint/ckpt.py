@@ -14,14 +14,15 @@ and verified on load, so a flipped byte is a loud ``CheckpointCorruption``
 instead of silently restored garbage.
 
 A tree is nested dicts, lists and tuples whose leaves are numpy arrays,
-torch tensors or scalars (None is an empty subtree). Leaf keys are the
+torch tensors, tensors placed on a mesh (``launch.placement.Sharded``,
+gathered) or scalars (None is an empty subtree). Leaf keys are the
 reference's: dict keys sorted, list indices as strings, joined by ``/``,
 ``_root`` for a bare leaf, so either package reads the other's
 checkpoints. Tensors are copied to the host with ``.cpu().numpy()``.
 
 Restore maps saved leaves back onto any "like" template (arrays or tensors
-of the target shapes) as host numpy arrays; placing them on a device is
-the caller's.
+of the target shapes) as host numpy arrays, or, given ``shardings``,
+places each on its mesh, whatever mesh saved it.
 ``load_arrays`` is the template-free variant (flat path -> host array) used
 by consumers that reconstruct their own structures (serve durability).
 ``restore_latest`` walks steps newest-first and returns the first *readable*
@@ -42,8 +43,10 @@ import zlib
 from typing import Any
 
 import numpy as np
+import torch
 
 from repro_torch import faults
+from repro_torch.launch.placement import NamedSharding, Sharded, gather, place
 
 _SEP = "/"
 
@@ -119,6 +122,8 @@ def _unflatten(like, leaves: dict[str, Any], path=()):
 
 
 def _to_host(leaf) -> np.ndarray:
+    if isinstance(leaf, Sharded):
+        leaf = gather(leaf, "cpu")
     if hasattr(leaf, "detach"):  # a torch tensor, on any device
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
@@ -266,13 +271,13 @@ def load_arrays(ckpt_dir: str, step: int, *,
 def restore(ckpt_dir: str, step: int, like, shardings=None, *,
             verify: bool = True):
     """Restore ``step`` into the structure of ``like`` (arrays or tensors
-    of the target shapes) as host numpy arrays. ``shardings`` must be
-    None: the port places nothing by sharding."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "ckpt.restore: sharded placement is not ported; pass "
-            "shardings=None and place the host arrays yourself")
+    of the target shapes) as host numpy arrays; with ``shardings`` (a
+    tree of ``launch.placement.NamedSharding`` matching ``like``), each
+    leaf placed on its mesh instead (``placement.place``), so a
+    checkpoint taken on one mesh restores onto another (elastic
+    reshard)."""
     data, manifest = load_arrays(ckpt_dir, step, verify=verify)
+    flat_shard = _flatten(shardings) if shardings is not None else None
     out = {}
     for key, leaf in _flatten(like).items():
         if key not in data:
@@ -282,6 +287,12 @@ def restore(ckpt_dir: str, step: int, like, shardings=None, *,
         if tuple(arr.shape) != want:
             raise ValueError(
                 f"shape mismatch for {key}: ckpt {arr.shape} vs {want}")
+        if flat_shard is not None:
+            where = flat_shard.get(key)
+            if not isinstance(where, NamedSharding):
+                raise TypeError(f"restore: no NamedSharding for leaf "
+                                f"{key!r} (got {type(where).__name__})")
+            arr = place(torch.from_numpy(arr), where)
         out[key] = arr
     return _unflatten(like, out), manifest["step"]
 

@@ -10,6 +10,8 @@ Also exposes ``knn_graph`` building blocks reused by HNSW and ground truth.
 from __future__ import annotations
 
 import dataclasses
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -40,23 +42,42 @@ class Graph:
         return self.neighbors.nbytes
 
 
+def _top_k_rows(g: np.ndarray, k: int, idx: np.ndarray,
+                sims: np.ndarray | None) -> None:
+    """Each row's k largest entries of ``g``, in descending order, into
+    ``idx`` (and their values into ``sims``)."""
+    part = np.argpartition(-g, k - 1, axis=1)[:, :k]
+    vals = np.take_along_axis(g, part, axis=1)
+    order = np.argsort(-vals, axis=1)
+    idx[:] = np.take_along_axis(part, order, axis=1)
+    if sims is not None:
+        sims[:] = np.take_along_axis(vals, order, axis=1)
+
+
 def brute_knn(vectors: np.ndarray, k: int, block: int = 2048,
               return_sims: bool = False):
-    """Exact cosine kNN via blocked matmul; excludes self."""
+    """Exact cosine kNN via blocked matmul; excludes self. Each block's
+    rows are ranked in slices on a thread a core (numpy's partition and
+    sort release the interpreter; each row's result is its own, so the
+    output does not depend on the slicing)."""
     n = vectors.shape[0]
     idx = np.empty((n, k), dtype=np.int32)
     sims = np.empty((n, k), dtype=np.float32) if return_sims else None
     vt = vectors.T.copy()
-    for s in range(0, n, block):
-        e = min(s + block, n)
-        g = vectors[s:e] @ vt                      # (b, n)
-        g[np.arange(s, e) - s, np.arange(s, e)] = -np.inf
-        part = np.argpartition(-g, k - 1, axis=1)[:, :k]
-        vals = np.take_along_axis(g, part, axis=1)
-        order = np.argsort(-vals, axis=1)
-        idx[s:e] = np.take_along_axis(part, order, axis=1)
-        if return_sims:
-            sims[s:e] = np.take_along_axis(vals, order, axis=1)
+    workers = os.cpu_count() or 1
+    with ThreadPoolExecutor(workers) as pool:
+        for s in range(0, n, block):
+            e = min(s + block, n)
+            g = vectors[s:e] @ vt                      # (b, n)
+            g[np.arange(s, e) - s, np.arange(s, e)] = -np.inf
+            step = -(-(e - s) // workers)
+            jobs = [pool.submit(_top_k_rows, g[r:r + step], k,
+                                idx[s + r:s + r + step],
+                                None if sims is None
+                                else sims[s + r:s + r + step])
+                    for r in range(0, e - s, step)]
+            for j in jobs:
+                j.result()
     return (idx, sims) if return_sims else idx
 
 

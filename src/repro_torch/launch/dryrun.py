@@ -18,8 +18,8 @@ that is a record with ``fits: false``, not a failure.
 The roofline constants and the memory come from the card
 (``--device cuda``, the default: ``roofline.chip_for`` its name, its
 ``total_memory``); ``--device cpu`` takes the H100 SXM row and traces the
-same. ``--mesh multi`` raises: the multi-GPU mesh is ROADMAP queue 1
-item 5. Results go to ``results/torch/`` (one JSON a cell, ``.err`` with
+same. ``--mesh multi`` raises: the multi-chip rows come after the
+training slice over a mesh (ROADMAP queue 1 item 5). Results go to ``results/torch/`` (one JSON a cell, ``.err`` with
 the traceback where a cell failed; the exit code is nonzero if any did);
 ``launch/report.py`` renders them.
 """
@@ -52,8 +52,8 @@ ACCT_DIR = "results/torch/accounting"
 
 def mesh_not_ported(what: str):
     return NotImplementedError(
-        f"{what}: only one GPU is ported; the multi-GPU mesh is ROADMAP "
-        f"queue 1 item 5")
+        f"{what}: the dry-run counts one GPU; its multi-chip rows come "
+        f"after the training slice over a mesh (ROADMAP queue 1 item 5)")
 
 
 def resolve_policy(policy: str, cfg) -> tuple[str, bool]:

@@ -14,10 +14,12 @@ list is the counterpart of the reference's
 of n cells on the host (through the plain kernels), ``[cuda:0] * n`` a
 mesh of n cells on one card.
 
-The production meshes of the LM dry-run (``make_production_mesh``) are
-not ported: they belong to the LM's multi-device slice.
+``launch/placement.py`` places tensors on a mesh and runs its cells.
 """
 from __future__ import annotations
+
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -41,6 +43,17 @@ class Mesh:
         self.devices = devices
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, devices.shape))
+        self._threads = None
+        self.run_lock = threading.Lock()   # one ``run_cells`` at a time
+
+    def threads(self) -> ThreadPoolExecutor:
+        """One thread a cell for ``placement.run_cells``, made on first
+        use and kept, so a cell's thread keeps its CUDA context and
+        handles from call to call; they end when the mesh is collected."""
+        if self._threads is None:
+            self._threads = ThreadPoolExecutor(
+                int(self.devices.size), thread_name_prefix="mesh-cell")
+        return self._threads
 
 
 def mesh_devices(n: int, devices=None) -> list[torch.device]:
@@ -55,11 +68,19 @@ def mesh_devices(n: int, devices=None) -> list[torch.device]:
                 f"has {count}; pass devices= to place cells explicitly "
                 f"(e.g. devices=['cpu'] * {n})")
         return [torch.device("cuda", i) for i in range(n)]
-    devices = [torch.device(d) for d in devices]
+    devices = [_indexed(torch.device(d)) for d in devices]
     if len(devices) < n:
         raise ValueError(
             f"a mesh of {n} cells was given {len(devices)} devices")
     return devices[:n]
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """``cuda`` as the current card's ``cuda:i``, so cells given either
+    name are on one device."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def _grid(shape: tuple[int, ...], devices) -> np.ndarray:
@@ -67,6 +88,15 @@ def _grid(shape: tuple[int, ...], devices) -> np.ndarray:
     grid = np.empty(len(flat), dtype=object)
     grid[:] = flat
     return grid.reshape(shape)
+
+
+def make_production_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
+    """16x16 ("data", "model") single pod (256 cells) or 2x16x16 ("pod",
+    "data", "model") multi-pod (512 cells), as the reference's; raises
+    where the process has fewer cards and ``devices`` is not given."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(_grid(shape, devices), axes)
 
 
 def make_local_mesh(data: int = 1, model: int = 1, devices=None) -> Mesh:

@@ -6,9 +6,10 @@ ssm arch (a frontend arch, internvl2 or whisper, is refused).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --device cpu
 
-Runs on CUDA unless ``--device`` names another device. Weights are random
-(``init_params`` with seed 0). Prints the timed second call's tokens/s
-and the first generated ids.
+Runs on CUDA unless ``--device`` names another device, as the reference
+does on a local mesh: ``ShardEnv(make_local_mesh())``, one cell on that
+device. Weights are random (``init_params`` with seed 0). Prints the
+timed second call's tokens/s and the first generated ids.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, reduced_config
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.transformer import ShardEnv, init_params
 from repro_torch.serve.engine import ServeEngine
 
@@ -38,9 +40,8 @@ def main(argv=None) -> None:
     if cfg.frontend != "none":
         raise SystemExit(f"{args.arch} needs a modality frontend; use the "
                          "rag_serve example for embedding workloads")
-    env = ShardEnv(None)
-    eng = ServeEngine(cfg, env, init_params(cfg, 0, args.device),
-                      device=args.device)
+    env = ShardEnv(make_local_mesh(devices=[args.device]))
+    eng = ServeEngine(cfg, env, init_params(cfg, 0, args.device))
     toks = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
     eng.generate(toks, max_new=args.new)  # warm-up

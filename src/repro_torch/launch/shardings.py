@@ -1,18 +1,24 @@
-"""Placement of the sharded search index on a device mesh (DESIGN.md §7,
-§13).
+"""Placement on a device mesh: the sharded search index's, and the LM's
+parameters, batches and decode caches (DESIGN.md §5, §7, §13).
 
-The reference's ``index_shardings`` returns ``NamedSharding``s: index
-leaves partitioned on their leading shard dim over the ``data`` axis, the
-query-side inputs partitioned on their leading batch dim over the query
-axis (or replicated). The port's mesh is a grid of ``torch.device``s
-(``launch/mesh.py``), so the placement is said directly: which cell holds
-which row shard for which lane, and which block of the batch a lane
-takes. Cells of any other axis (``model`` when it carries no lanes)
-would hold replicas that compute the same result; the port runs the
-first of them only.
+The reference's functions return ``NamedSharding``s of
+``jax.sharding``; the port's return ``launch.placement.NamedSharding``s
+of its own mesh with the same specs, leaf for leaf, which
+``placement.place`` turns into each cell's block. The LM's policy (the
+reference's): TP over ``model`` for attention heads, FFN hidden, MoE
+expert dim and unembed vocab; DP over (``pod``, ``data``) for batch dims.
+Tensors whose natural axis is not divisible by the TP degree fall back to
+replication on that axis (e.g. smollm 9 heads, gemma3 kv=1), recorded
+rather than padded.
 
-The LM's shardings (``param_/opt_/batch_/cache_shardings``) are not
-ported: they belong to the LM's multi-device slice.
+The sharded index's placement (``index_shardings``) is said directly:
+which cell holds which row shard for which lane, and which block of the
+batch a lane takes. Cells of any other axis (``model`` when it carries no
+lanes) would hold replicas that compute the same result; the port runs
+the first of them only.
+
+The optimizer state's shardings (``opt_shardings``, ZeRO-1) belong to
+the training slice over a mesh (ROADMAP queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -20,7 +26,171 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.launch.mesh import index_axis_size
+from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.mesh import data_axis_names, index_axis_size
+from repro_torch.launch.placement import NamedSharding, P, map_with_path
+
+
+def _div(n: int, by: int) -> bool:
+    return by > 0 and n % by == 0
+
+
+def _path_names(path) -> list[str]:
+    """A leaf's path as names: dict keys, list indices as strings (also
+    the keys and indices of jax's path entries)."""
+    out = []
+    for p in path:
+        if hasattr(p, "key"):
+            out.append(str(p.key))
+        elif hasattr(p, "idx"):
+            out.append(str(p.idx))
+        else:
+            out.append(str(p))
+    return out
+
+
+def _stacked(names: list[str]) -> bool:
+    """A leaf of the reference's layer stack (leading L dim): under
+    ``layers``/``enc_layers`` with no layer index after it (the port's
+    modules hold one tree a layer, whose paths carry the index)."""
+    return any(n in ("layers", "enc_layers")
+               and not (i + 1 < len(names) and names[i + 1].isdigit())
+               for i, n in enumerate(names))
+
+
+def param_pspec(path, leaf, cfg: ArchConfig, n_model: int) -> P:
+    """The reference's spec of a parameter leaf; for a leaf of one layer
+    (the port's layout), the same spec without the stack's leading
+    None."""
+    names = _path_names(path)
+    name = names[-1] if names else ""
+    lead = (None,) if _stacked(names) else ()
+    shape = leaf.shape
+    in_attn = any(n in ("attn", "cross") for n in names)
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+
+    if name == "unembed":
+        return P("model" if _div(shape[0], n_model) else None, None)
+    if name == "embed":
+        return P(None, None)  # replicated input table (gather stays local)
+    if in_attn:
+        if name == "wq":
+            return P(*lead, None, "model" if _div(H, n_model) else None)
+        if name in ("wk", "wv"):
+            return P(*lead, None, "model" if _div(KV, n_model) else None)
+        if name == "wo":
+            return P(*lead, "model" if _div(H, n_model) else None, None)
+    if name in ("w1", "w3", "w2"):  # MoE experts: (E, d, f)/(E, f, d)
+        e_ax = len(lead)
+        return P(*lead, "model" if _div(shape[e_ax], n_model) else None,
+                 None, None)
+    if name == "router":
+        return P(*lead, None, None)
+    if name in ("w_gate", "w_up", "cm_k", "in_proj", "wr", "wk", "wv", "wg",
+                "x_proj"):
+        last = shape[-1]
+        return P(*((None,) * (len(shape) - 1)),
+                 "model" if _div(last, n_model) else None)
+    if name in ("w_down", "cm_v", "out_proj", "wo", "cm_r", "dt_proj"):
+        first_ax = len(lead)
+        return P(*lead, "model" if _div(shape[first_ax], n_model) else None,
+                 *((None,) * (len(shape) - len(lead) - 1)))
+    return P(*((None,) * len(shape)))  # norms, scalars, small tensors
+
+
+def _tree(specs):
+    """A parameter module as its tree of leaves (others as they are)."""
+    return specs.tree() if hasattr(specs, "tree") else specs
+
+
+def param_shardings(cfg: ArchConfig, mesh, specs, policy: str = "tp"):
+    """policy="tp": tensor-parallel rules above. policy="dp": replicate all
+    params (pure data parallel); "sp" keeps the TP layout (only the
+    activations change, ``ShardEnv.act3``). ``specs``: a parameter tree
+    (the port's per-layer layout, a ``Transformer``, or the reference's
+    stacked one) of tensors or anything with a ``shape``."""
+    n_model = mesh.shape["model"]
+    if policy == "dp":
+        return map_with_path(
+            lambda _, leaf: NamedSharding(mesh, P(*((None,) *
+                                                    len(leaf.shape)))),
+            _tree(specs))
+    return map_with_path(
+        lambda path, leaf: NamedSharding(mesh, param_pspec(path, leaf, cfg,
+                                                           n_model)),
+        _tree(specs))
+
+
+def _all_axes(mesh) -> tuple:
+    return tuple(mesh.axis_names)
+
+
+def _n(mesh, axes) -> int:
+    n = 1
+    for a in axes:
+        n *= mesh.shape[a]
+    return n
+
+
+def batch_shardings(cfg: ArchConfig, mesh, batch_specs, policy: str = "tp"):
+    """A batch's leaves split on their leading (batch) dim over the data
+    axes (over every axis under "dp" where it divides), replicated where
+    it does not divide."""
+    dp = data_axis_names(mesh)
+    n_data = _n(mesh, dp)
+    full = _all_axes(mesh)
+    n_full = _n(mesh, full)
+
+    def assign(path, leaf):
+        b = leaf.shape[0]
+        if policy == "dp" and _div(b, n_full):
+            return NamedSharding(mesh, P(full,
+                                         *((None,) * (len(leaf.shape) - 1))))
+        lead = dp if _div(b, n_data) else None
+        return NamedSharding(mesh, P(lead,
+                                     *((None,) * (len(leaf.shape) - 1))))
+
+    return map_with_path(assign, batch_specs)
+
+
+def cache_shardings(cfg: ArchConfig, mesh, cache_spec_tree):
+    """A decode cache's leaves (stacked under a leading L): K/V by batch
+    over the data axes and KV heads over ``model`` where they divide, by
+    sequence over ``model`` where the batch does not split; the recurrent
+    states by batch and their widest dim; ``pos`` replicated."""
+    dp = data_axis_names(mesh)
+    n_data = _n(mesh, dp)
+    n_model = mesh.shape["model"]
+
+    def assign(path, leaf):
+        names = _path_names(path)
+        name = names[-1] if names else ""
+        if name == "pos":
+            return NamedSharding(mesh, P())
+        s = leaf.shape
+        b_ax = dp if _div(s[1], n_data) else None
+        if name in ("k", "v", "ck", "cv"):       # (L, B, S, KV, hd)
+            if b_ax is not None:
+                kv_ax = "model" if _div(s[3], n_model) else None
+                return NamedSharding(mesh, P(None, b_ax, None, kv_ax, None))
+            # batch unshardable (long_500k B=1): shard the cache sequence
+            seq_ax = "model" if _div(s[2], n_model) else None
+            return NamedSharding(mesh, P(None, None, seq_ax, None, None))
+        if name == "ssm":                        # (L, B, d_in, N)
+            return NamedSharding(mesh, P(
+                None, b_ax, "model" if _div(s[2], n_model) else None, None))
+        if name == "conv":                       # (L, B, 3, d_in)
+            return NamedSharding(mesh, P(
+                None, b_ax, None, "model" if _div(s[3], n_model) else None))
+        if name == "wkv":                        # (L, B, H, N, N)
+            return NamedSharding(mesh, P(
+                None, b_ax, "model" if _div(s[2], n_model) else None,
+                None, None))
+        if name in ("shift_tm", "shift_cm"):     # (L, B, d)
+            return NamedSharding(mesh, P(None, b_ax, None))
+        return NamedSharding(mesh, P(*((None,) * len(s))))
+
+    return map_with_path(assign, cache_spec_tree)
 
 
 @dataclasses.dataclass(frozen=True)

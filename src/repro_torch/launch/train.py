@@ -6,7 +6,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small --full
 
 Runs on CUDA unless ``--device`` names another device, on one device
-(``ShardEnv(None)``: the port has no mesh). Weights are random
+(``ShardEnv(None)``: training over a mesh is the next slice, ROADMAP
+queue 1 item 5). Weights are random
 (``init_params`` with seed 0), batches come from the step-indexed
 ``TokenPipeline`` (stub frame embeddings for whisper), and the loop
 resumes from the newest checkpoint in ``--ckpt-dir``, checkpoints every

@@ -1,5 +1,6 @@
-"""Attention: chunked (flash-style) softmax for prefill and encode, and
-plain decode attention over a cache.
+"""Attention: chunked (flash-style) softmax for prefill and encode, plain
+decode attention over a cache, and the flash-decode combine for a cache
+whose sequence is split over a mesh axis (long-context serving).
 
 The chunked form never materializes the (S, S) score matrix: a loop over
 query blocks and an inner loop over KV blocks carry running (max, sum,
@@ -7,12 +8,14 @@ acc), the standard online-softmax recurrence. The reference computes both
 functions in plain jnp outside any Pallas kernel; the port computes the
 same function in plain torch ops (not ``scaled_dot_product_attention``,
 whose blocking and rounding are its own), under autograd for the training
-loss. ``flash_decode_sharded`` waits for the multi-GPU port.
+loss.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.launch.placement import (NamedSharding, P, Sharded, place,
+                                          run_cells)
 from repro_torch.models import settings
 
 NEG_INF = -1e30
@@ -108,3 +111,58 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskh->bkgh", p.to(v_cache.dtype), v_cache)
     return out.reshape(B, 1, H, hd)
+
+
+def flash_decode_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, cache_len: int, base: int,
+                         cell, seq_axis: str, window: int = 0) -> torch.Tensor:
+    """One cell's part of ``flash_decode_sharded``: the online softmax of
+    ``q`` (B, 1, H, hd) over its cache slice (B, S_loc, KV, hd), which
+    holds positions ``base`` ..., combined with the other cells' along
+    ``seq_axis`` by one pmax and two psums. A slice wholly past
+    ``cache_len`` scores NEG_INF everywhere (finite, so its ``p`` is 1),
+    and only its weight exp(m - max m) = 0 removes it. Returns the
+    attention over the whole cache (B, 1, H, hd)."""
+    B, _, H, hd = q.shape
+    S_loc, KV = k_cache.shape[1], k_cache.shape[2]
+    qr = q.reshape(B, KV, H // KV, hd)
+    s = _scaled(torch.einsum("bkgh,bskh->bkgs", qr, k_cache), hd)
+    pos = base + torch.arange(S_loc, device=q.device)
+    valid = pos < cache_len
+    if window > 0:
+        valid &= pos >= cache_len - window
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1)                                   # (B, KV, G)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    pv = torch.einsum("bkgs,bskh->bkgh", p.to(v_cache.dtype), v_cache)
+    g_m = cell.pmax(m, seq_axis)
+    corr = torch.exp(m - g_m)
+    l_g = cell.psum(l * corr, seq_axis)
+    pv_g = cell.psum(pv.float() * corr[..., None], seq_axis)
+    out = pv_g / torch.clamp(l_g, min=1e-30)[..., None]
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def flash_decode_sharded(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, cache_len: int, *, mesh,
+                         seq_axis: str, window: int = 0) -> torch.Tensor:
+    """Decode attention over a cache whose SEQUENCE dim is split over
+    ``seq_axis`` of ``mesh`` (the reference's shard_map flash decode):
+    ``q`` (B, 1, H, hd) on every cell, each cell's block of the caches
+    (B, S, KV, hd) — tensors, placed here, or ``Sharded`` already on
+    ``P(None, seq_axis)`` — reduced by ``flash_decode_partial``. Returns
+    the result (B, 1, H, hd) on the mesh's first cell."""
+    spec = P(None, seq_axis, None, None)
+    caches = [c if isinstance(c, Sharded) else
+              place(c, NamedSharding(mesh, spec)) for c in (k_cache, v_cache)]
+    qs = place(q, NamedSharding(mesh, P()))
+    S = caches[0].shape[1]
+
+    def cell_fn(cell):
+        kb, vb = caches[0].local(cell), caches[1].local(cell)
+        base = cell.block(seq_axis) * (S // cell.size(seq_axis))
+        return flash_decode_partial(qs.local(cell), kb, vb, cache_len, base,
+                                    cell, seq_axis, window)
+
+    return run_cells(mesh, cell_fn).flat[0]

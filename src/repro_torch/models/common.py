@@ -78,13 +78,16 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return table[tokens].to(CDT)
 
 
-def unembed_logits(h: torch.Tensor, table: torch.Tensor,
-                   real_vocab: int) -> torch.Tensor:
-    """h @ table.T with padded-id masking; logits fp32 for a stable loss."""
+def unembed_logits(h: torch.Tensor, table: torch.Tensor, real_vocab: int,
+                   offset: int = 0) -> torch.Tensor:
+    """h @ table.T with padded-id masking; logits fp32 for a stable loss.
+    ``table`` holds the rows of ids ``offset``... (a block of the padded
+    vocabulary on a mesh cell)."""
     logits = (h @ table.to(CDT).T).float()
     v_pad = table.shape[0]
-    if v_pad > real_vocab:
-        pad = torch.arange(v_pad, device=logits.device) >= real_vocab
+    if v_pad + offset > real_vocab:
+        pad = torch.arange(offset, offset + v_pad,
+                           device=logits.device) >= real_vocab
         logits = logits.masked_fill(pad, -1e30)
     return logits
 

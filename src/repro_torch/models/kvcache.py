@@ -9,6 +9,10 @@ stacked (leading L) tensors; ``prefill`` allocates its cache here.
 * audio (whisper): decoder self K/V (``max_decode_len`` positions by
   default, the reference's layout) + the frozen cross K/V over the
   encoder's output (the spec's length).
+
+Over a mesh of more than one cell the cache is placed by
+``cache_shardings``: each leaf ``Sharded``, its blocks views of one
+zeroed tensor where the cells share a device.
 """
 from __future__ import annotations
 
@@ -16,6 +20,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.core.device_atlas import resolve_device
+from repro_torch.launch.mesh import staging_device
+from repro_torch.launch.placement import place
+from repro_torch.launch.shardings import cache_shardings
 from repro_torch.models import common
 from repro_torch.models.mamba import CONV_K
 
@@ -52,13 +59,26 @@ def cache_specs(cfg: ArchConfig, spec: ShapeSpec,
 
 
 def init_cache(cfg: ArchConfig, spec: ShapeSpec, device=None,
-               dec_len: int | None = None) -> dict:
+               dec_len: int | None = None, env=None) -> dict:
     """An empty decode state: zeros on ``device`` (None means CUDA) and
     ``pos`` 0 (the port keeps the position a Python int, so decoding
-    reads no device scalar)."""
-    dev = resolve_device(device)
-    out = {name: torch.zeros(shape, dtype=dtype, device=dev)
-           for name, (shape, dtype) in cache_specs(cfg, spec,
-                                                   dec_len).items()
-           if name != "pos"}
-    return {"pos": 0, **out}
+    reads no device scalar). With ``env`` over a mesh of more than one
+    cell (``device`` then None), each leaf placed on it by
+    ``cache_shardings``."""
+    specs = {name: sd for name, sd in cache_specs(cfg, spec,
+                                                  dec_len).items()
+             if name != "pos"}
+    if env is None or env.cells == 1:
+        dev = resolve_device(device)
+        return {"pos": 0, **{name: torch.zeros(shape, dtype=dtype,
+                                               device=dev)
+                             for name, (shape, dtype) in specs.items()}}
+    if device is not None:
+        raise ValueError("init_cache: pass device=None with a mesh")
+    like = {name: torch.empty(shape, dtype=dtype, device="meta")
+            for name, (shape, dtype) in specs.items()}
+    where = cache_shardings(cfg, env.mesh, like)
+    home = staging_device(env.mesh)
+    return {"pos": 0, **{name: place(torch.zeros(x.shape, dtype=x.dtype,
+                                                 device=home), where[name])
+                         for name, x in like.items()}}

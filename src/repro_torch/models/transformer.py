@@ -19,6 +19,23 @@ autograd, each layer rematerialized in the backward pass
 ``nothing_saveable``); ``prefill``, ``decode_step`` and ``encode`` run
 without it. Every pass runs on the device the parameters live on.
 
+Over a device mesh (``ShardEnv(mesh, data_axes, model_axis, policy)``)
+the serving passes of the dense, vlm and moe families run on every cell
+(``launch.placement.run_cells``): the parameters placed by
+``param_shardings`` (``MeshParams``: each cell's module of its blocks,
+views where the cell is on their device), the batch split as the
+reference's ``act3`` lays out the residual stream, and each cell's pass
+the one-device pass on its local heads, KV heads, FFN width, experts and
+vocab, joined where the reference's constraints and shard_maps imply: a
+sum over ``model`` after each row-parallel product (``wo``, ``w_down``)
+where it is split, a gather of the vocab-split logits, the MoE's
+all_to_alls and psum (``models/moe.py``), the flash-decode combine where
+the cache's sequence is split, and the relayouts between the residual
+stream's layout and the full sequence's under "sp". A mesh of one cell
+runs the one-device pass on that cell's device, bit for bit; a hybrid,
+ssm or audio model on a larger mesh raises (ROADMAP queue 1 item 5), as
+does ``forward_loss``.
+
 Two differences from the reference, on purpose, both in the decode
 cache (ROADMAP queue 3):
 * its dense and moe ``prefill`` keeps a cache exactly as long as the
@@ -47,28 +64,156 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.core.device_atlas import resolve_device
+from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.placement import (NamedSharding, P, Sharded, fit,
+                                          full_spec, gather, map_with_path,
+                                          place, place_tree, run_cells)
+from repro_torch.launch.shardings import param_shardings
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import (CDT, embed_lookup, init_dense,
                                        pad_vocab, rms_norm, rope,
                                        softmax_xent, swiglu, unembed_logits)
 from repro_torch.models.kvcache import init_cache
 from repro_torch.models.mamba import init_mamba, mamba_forward
-from repro_torch.models.moe import MoEDims, moe_ffn
+from repro_torch.models.moe import MoEDims, moe_cell, moe_ffn
 from repro_torch.models.rwkv6 import (init_rwkv_layer, rwkv_channel_mix,
                                       rwkv_time_mix)
 
 
 @dataclasses.dataclass(frozen=True)
 class ShardEnv:
-    """The reference's sharding environment. Only ``mesh=None`` (one
-    device, no sharding constraints) is ported; the multi-GPU port takes
-    the mesh, its axis names and policies (ROADMAP queue 1 item 5)."""
+    """Mesh + axis naming (the reference's). ``mesh=None``: one device, no
+    collectives. ``mesh``: a ``launch.mesh.Mesh``; a mesh of one cell
+    runs the one-device pass on that cell's device.
+
+    policy="tp": TP over the model axis (default). policy="dp": pure data
+    parallel: batch over ALL mesh axes, params replicated. policy="sp":
+    TP params with the residual stream's SEQUENCE split over the model
+    axis (Megatron-SP).
+
+    The reference's constraint helpers (``dp3``, ``logits3``, ``act3``,
+    ``heads4``) place a tensor on the mesh by the spec the reference
+    constrains it to (``*_spec``; a dim its axes do not divide is kept
+    whole). Inside a cell's pass (``at``) the same specs say how the
+    cell's block is laid out, and ``to_full``/``to_act`` relayout it."""
     mesh: Any = None
+    data_axes: tuple = ("data",)
+    model_axis: str = "model"
+    policy: str = "tp"   # tp | dp | sp (sequence-parallel residual stream)
+    # inside a cell's pass: the cell, the global batch and sequence
+    cell: Any = dataclasses.field(default=None, compare=False, repr=False)
+    batch: int = dataclasses.field(default=0, compare=False, repr=False)
+    seq: int = dataclasses.field(default=0, compare=False, repr=False)
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "ShardEnv: a device mesh is not ported; pass mesh=None")
+        if self.mesh is not None and not isinstance(self.mesh, Mesh):
+            raise TypeError(
+                f"ShardEnv: mesh must be a repro_torch.launch.mesh.Mesh or "
+                f"None, not {type(self.mesh).__name__}")
+        if self.policy not in ("tp", "dp", "sp"):
+            raise ValueError(f"ShardEnv: unknown policy {self.policy!r}")
+
+    @property
+    def n_model(self) -> int:
+        return self.mesh.shape[self.model_axis] if self.mesh is not None else 1
+
+    @property
+    def cells(self) -> int:
+        """Cells on the mesh (1 without one)."""
+        return 1 if self.mesh is None else int(self.mesh.devices.size)
+
+    @property
+    def batch_axes(self) -> tuple:
+        if self.policy == "dp":
+            return tuple(self.data_axes) + (self.model_axis,)
+        return self.data_axes
+
+    def _b_axes(self, b: int):
+        ax = self.batch_axes
+        if self.mesh is None:
+            return ax
+        n = 1
+        for a in ax:
+            n *= self.mesh.shape[a]
+        if b % n:
+            return self.data_axes  # fall back when batch won't split
+        return ax
+
+    def dp3_spec(self, shape) -> P:   # (B, S, d), sequence replicated
+        return P(self._b_axes(shape[0]), None, None)
+
+    def logits3_spec(self, shape) -> P:
+        if self.policy == "dp":
+            return P(self._b_axes(shape[0]), None, None)
+        return P(self.data_axes, None, self.model_axis)
+
+    def act3_spec(self, shape) -> P:
+        if self.policy == "sp" and shape[1] % max(self.n_model, 1) == 0 \
+                and self.n_model > 1:
+            return P(self.data_axes, self.model_axis, None)
+        return self.dp3_spec(shape)
+
+    def heads4_spec(self, shape) -> P:   # (B, S, H, hd)
+        if self.policy != "dp" and shape[2] % max(self.n_model, 1) == 0 \
+                and self.n_model > 1:
+            return P(self.data_axes, None, self.model_axis, None)
+        return P(self._b_axes(shape[0]), None, None, None)
+
+    def constrain(self, x, spec):
+        """``x`` (a tensor, or ``Sharded``) placed on the mesh by ``spec``
+        fitted to its shape; ``x`` itself without a mesh."""
+        if self.mesh is None:
+            return x
+        if isinstance(x, Sharded):
+            x = gather(x)
+        return place(x, NamedSharding(self.mesh, fit(self.mesh, spec,
+                                                     x.shape)))
+
+    def dp3(self, x):
+        return self.constrain(x, self.dp3_spec(x.shape))
+
+    def logits3(self, x):
+        return self.constrain(x, self.logits3_spec(x.shape))
+
+    def act3(self, x):
+        return self.constrain(x, self.act3_spec(x.shape))
+
+    def heads4(self, x):
+        return self.constrain(x, self.heads4_spec(x.shape))
+
+    # -- inside a cell's pass --------------------------------------------
+
+    def at(self, cell, batch: int, seq: int) -> "ShardEnv":
+        """This env inside ``cell``'s pass over a (batch, seq) input."""
+        return dataclasses.replace(self, cell=cell, batch=batch, seq=seq)
+
+    def act(self) -> P:
+        """The residual stream's layout (B, S, d) in this pass."""
+        shape = (self.batch, self.seq, 1)
+        return fit(self.mesh, self.act3_spec(shape), shape)
+
+    def full(self) -> P:
+        """The full sequence's layout (B, S, d): what attention, the FFN
+        and the LM head take."""
+        shape = (self.batch, self.seq, 1)
+        return fit(self.mesh, self.dp3_spec(shape), shape)
+
+    def to_full(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.cell is None else \
+            self.cell.relayout(x, self.act(), self.full())
+
+    def to_act(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.cell is None else \
+            self.cell.relayout(x, self.full(), self.act())
+
+    def sum_model(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the model axis of a row-parallel product's
+        partials (in cell order)."""
+        return x if self.cell is None else \
+            self.cell.psum(x, self.model_axis)
+
+
+ONE_DEVICE = ShardEnv(None)
 
 
 # ---------------------------------------------------------------------------
@@ -149,6 +294,60 @@ def on_device(params: Transformer, device) -> Transformer:
     different devices can share one module."""
     dev = torch.empty(0, device=device).device  # "cuda" -> "cuda:0"
     return params if params.device == dev else copy.deepcopy(params).to(dev)
+
+
+class MeshParams:
+    """A ``Transformer`` placed on ``env``'s mesh by ``param_shardings``
+    (``placed``: each leaf ``Sharded``) and, for each cell, a
+    ``Transformer`` of its blocks (``local``). Where every cell is on the
+    parameters' device the blocks are views of them and a replicated leaf
+    is the tensor itself: placing costs no memory."""
+
+    def __init__(self, params: Transformer, env: ShardEnv):
+        self.cfg, self.env = params.cfg, env
+        self.placed = place_tree(params.tree(), param_shardings(
+            params.cfg, env.mesh, params, env.policy))
+        self.cells = np.empty(env.mesh.devices.shape, dtype=object)
+        for index in np.ndindex(self.cells.shape):
+            self.cells[index] = Transformer(params.cfg, map_with_path(
+                lambda _, leaf: leaf.local(index), self.placed))
+
+    def local(self, cell) -> Transformer:
+        return self.cells[cell.index]
+
+
+def place_params(params, env: ShardEnv):
+    """``params`` ready for ``env``'s passes: as they are without a mesh;
+    on the cell's device for a mesh of one cell (``on_device``); placed
+    (``MeshParams``) on a larger mesh, unless they already are."""
+    if isinstance(params, MeshParams):
+        return _placed(params, env, "place_params")
+    if env.mesh is None:
+        return params
+    if env.cells == 1:
+        return on_device(params, env.mesh.devices.flat[0])
+    return MeshParams(params, env)
+
+
+def _placed(params, env: ShardEnv, what: str):
+    """``params`` where they are as ``env``'s passes take them, else a
+    ValueError: as they are without a mesh; on the cell's device for a
+    mesh of one cell; placed for this mesh and policy on a larger one.
+    A pass never places them itself, which would copy the model at every
+    call: the caller does, once (``place_params``)."""
+    if env.mesh is None:
+        ok = not isinstance(params, MeshParams)
+    elif env.cells == 1:
+        ok = (isinstance(params, Transformer)
+              and params.device == env.mesh.devices.flat[0])
+    else:
+        ok = (isinstance(params, MeshParams) and params.env.mesh is env.mesh
+              and params.env.policy == env.policy)
+    if not ok:
+        raise ValueError(f"{what}: the parameters are not placed for this "
+                         f"mesh and policy (place them once with "
+                         f"place_params)")
+    return params
 
 
 def _init_ffn(gen, d: int, f: int) -> dict:
@@ -254,14 +453,35 @@ def _chunk(n: int, most: int) -> int:
     return next(c for c in range(min(n, most), 0, -1) if n % c == 0)
 
 
+def _kv_groups(k, v, cfg: ArchConfig, n_q: int, env: ShardEnv):
+    """The K/V heads a cell's ``n_q`` query heads read. Where the query
+    heads are split over the model axis but the KV heads are not (they do
+    not divide it, e.g. gemma3's one), head h reads group h // G: the
+    groups of this cell's heads, contiguous where its heads cover whole
+    groups, else one a head."""
+    if n_q == cfg.n_heads or k.shape[2] < cfg.n_kv_heads:
+        return k, v
+    G = cfg.n_heads // cfg.n_kv_heads
+    h0 = env.cell.block(env.model_axis) * n_q
+    if n_q % G == 0:
+        g0 = h0 // G
+        return k[:, :, g0:g0 + n_q // G], v[:, :, g0:g0 + n_q // G]
+    idx = torch.div(h0 + torch.arange(n_q, device=k.device), G,
+                    rounding_mode="floor")
+    return k[:, :, idx], v[:, :, idx]
+
+
 def _attend_full(p: Tree, h, cfg: ArchConfig, window: int, positions,
-                 causal: bool = True, kv=None):
+                 causal: bool = True, kv=None, env: ShardEnv = ONE_DEVICE):
     """Chunked attention. h: (B, S, d). Self-attention (``kv`` None)
     rotates q and k by RoPE; cross-attention takes k and v from ``kv``
     (B, Sk, d), unrotated and unmasked. Returns the output and the
-    layer's (k, v), (B, Sk, KV, hd) each."""
+    layer's (k, v), (B, Sk, KV, hd) each. In a cell the head counts are
+    its own (its blocks of ``wq``, ``wk``, ``wv``), and where ``wo`` is
+    split the output is the sum of the cells' products."""
     B, S, _ = h.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
+    H, KV = p.wq.shape[1] // hd, p.wk.shape[1] // hd
     src = h if kv is None else kv
     Sk = src.shape[1]
     q = _proj(h, p.wq).reshape(B, S, H, hd)
@@ -270,27 +490,39 @@ def _attend_full(p: Tree, h, cfg: ArchConfig, window: int, positions,
     if kv is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    o = attn_lib.chunked_attention(q, k, v, causal=causal and kv is None,
+    ka, va = _kv_groups(k, v, cfg, H, env)
+    o = attn_lib.chunked_attention(q, ka, va, causal=causal and kv is None,
                                    window=window, q_chunk=_chunk(S, 512),
                                    kv_chunk=_chunk(Sk, 1024))
-    return _proj(o.reshape(B, S, H * hd), p.wo), (k, v)
+    out = _proj(o.reshape(B, S, H * hd), p.wo)
+    return (env.sum_model(out) if H < cfg.n_heads else out), (k, v)
 
 
-def _swiglu(p: Tree, h: torch.Tensor) -> torch.Tensor:
-    return swiglu(h, p.w_gate.to(h.dtype), p.w_up.to(h.dtype),
-                  p.w_down.to(h.dtype))
+def _swiglu(p: Tree, h: torch.Tensor, f: int = 0,
+            env: ShardEnv = ONE_DEVICE) -> torch.Tensor:
+    """A SwiGLU of hidden width ``f``; in a cell whose block of it is
+    narrower, the sum of the cells' products."""
+    y = swiglu(h, p.w_gate.to(h.dtype), p.w_up.to(h.dtype),
+               p.w_down.to(h.dtype))
+    return env.sum_model(y) if p.w_down.shape[0] < f else y
 
 
-def _ffn_apply(p: Tree, h: torch.Tensor, cfg: ArchConfig,
-               mode: str) -> torch.Tensor:
+def _ffn_apply(p: Tree, h: torch.Tensor, cfg: ArchConfig, mode: str,
+               env: ShardEnv = ONE_DEVICE) -> torch.Tensor:
     """The layer's FFN: a SwiGLU, or the MoE (capacity-bounded outside
-    decode, dropless in it) plus kimi-k2's shared expert."""
+    decode, dropless in it; in a cell, ``moe_cell``) plus kimi-k2's
+    shared expert. In a cell ``h`` is laid out as ``env.full()``."""
     if not cfg.is_moe:
-        return _swiglu(p, h)
-    y = moe_ffn(h, p, MoEDims(cfg.n_experts, cfg.moe_top_k,
-                              cfg.capacity_factor), mode=mode)
+        return _swiglu(p, h, cfg.d_ff, env)
+    dims = MoEDims(cfg.n_experts, cfg.moe_top_k, cfg.capacity_factor)
+    if env.cell is None:
+        y = moe_ffn(h, p, dims, mode=mode)
+    else:
+        y = moe_cell(h, p, dims, env.cell, env.full(),
+                     (env.batch, env.seq, h.shape[-1]), env.model_axis,
+                     env.data_axes, mode)
     if cfg.n_shared_experts:
-        y = y + _swiglu(p.shared, h)
+        y = y + _swiglu(p.shared, h, cfg.d_ff * cfg.n_shared_experts, env)
     return y
 
 
@@ -302,11 +534,13 @@ def _mix_heads(beta: torch.Tensor, ao: torch.Tensor,
 
 
 def _block_forward(p: Tree, h, cfg: ArchConfig, window: int, positions,
-                   mode: str, enc_out=None, causal: bool = True):
+                   mode: str, enc_out=None, causal: bool = True,
+                   env: ShardEnv = ONE_DEVICE):
     """One block (train/prefill/encode path). Returns (h, the layer's
     decode state: k/v, plus mamba's ssm/conv for hybrid, the cross K/V
     ck/cv where ``enc_out`` is given; rwkv6's wkv and shift tails for
-    ssm)."""
+    ssm). In a cell, ``h`` is its block of the residual stream
+    (``env.act()``); attention and the FFN take the full sequence."""
     eps = cfg.norm_eps
     if cfg.family == "ssm":
         y, (shift_tm, wkv) = rwkv_time_mix(p, rms_norm(h, p.ln1, eps), None,
@@ -315,19 +549,22 @@ def _block_forward(p: Tree, h, cfg: ArchConfig, window: int, positions,
         y, shift_cm = rwkv_channel_mix(p, rms_norm(h, p.ln2, eps), None)
         return h + y, {"wkv": wkv, "shift_tm": shift_tm,
                        "shift_cm": shift_cm}
-    hn = rms_norm(h, p.ln1, eps)
-    ao, (k, v) = _attend_full(p.attn, hn, cfg, window, positions, causal)
+    hn = env.to_full(rms_norm(h, p.ln1, eps))
+    ao, (k, v) = _attend_full(p.attn, hn, cfg, window, positions, causal,
+                              env=env)
     state = {"k": k, "v": v}
     if cfg.family == "hybrid":
         mo, (state["ssm"], state["conv"]) = mamba_forward(p.mamba, hn)
         ao = _mix_heads(p.beta, ao, mo)
-    h = h + ao
+    h = h + env.to_act(ao)
     if enc_out is not None:  # whisper decoder: cross-attend to the encoder
         co, (state["ck"], state["cv"]) = _attend_full(
             p.cross, rms_norm(h, p.ln_cross, eps), cfg, 0, positions,
             kv=enc_out)
         h = h + co
-    return h + _ffn_apply(p.ffn, rms_norm(h, p.ln2, eps), cfg, mode), state
+    y = _ffn_apply(p.ffn, env.to_full(rms_norm(h, p.ln2, eps)), cfg, mode,
+                   env)
+    return h + env.to_act(y), state
 
 
 def _block_out(p: Tree, h, cfg: ArchConfig, window: int, positions,
@@ -337,11 +574,18 @@ def _block_out(p: Tree, h, cfg: ArchConfig, window: int, positions,
                           causal)[0]
 
 
-def _store(cache: dict, li: int, state: dict) -> None:
+def _store(cache: dict, li: int, state: dict,
+           env: ShardEnv = ONE_DEVICE) -> None:
     """Layer ``li``'s prefill state into the cache. K/V of positions
     0..S-1 go to slot ``p % R`` of the cache's R slots, the last
     ``min(S, R)`` of them kept (R >= S but for a hybrid ring shorter than
-    the prompt); the recurrent states are copied whole."""
+    the prompt); the recurrent states are copied whole. In a cell, K/V
+    are relaid out as the cache is placed (``cache_shardings``) and each
+    cell writes the slots it holds."""
+    if env.cell is not None:
+        for name in ("k", "v"):
+            _store_cell(cache[name], li, state[name], env)
+        return
     for name, x in state.items():
         if name not in ("k", "v"):
             cache[name][li] = x
@@ -352,14 +596,38 @@ def _store(cache: dict, li: int, state: dict) -> None:
         cache[name][li][:, slots] = x[:, S - m:]
 
 
+def _cache_layout(leaf: Sharded) -> tuple:
+    """A placed K/V leaf's per-layer layout: (batch, seq, KV heads, hd)
+    entries as tuples of axes."""
+    return full_spec(leaf.spec, 5)[1:]
+
+
+def _store_cell(leaf: Sharded, li: int, x: torch.Tensor,
+                env: ShardEnv) -> None:
+    """A cell's K or V (its batch block and KV heads, every position) into
+    its block of the placed cache: relaid out to the cache's batch and
+    heads, then the positions of the slots it holds (a dense cache:
+    position p in slot p)."""
+    b, s, kv, _ = _cache_layout(leaf)
+    kv_now = env.model_axis if x.shape[2] < leaf.shape[3] else None
+    x = env.cell.relayout(x, (env.full()[0], None, kv_now),
+                          (b, None, kv, None))
+    dst = leaf.local(env.cell)[li]
+    lo = env.cell.block(s) * dst.shape[1]
+    n = min(x.shape[1], lo + dst.shape[1]) - lo
+    if n > 0:
+        dst[:, :n] = x[:, lo:lo + n]
+
+
 def _stack_forward(params: Transformer, cfg: ArchConfig, h,
                    mode: str = "prefill", cache=None, enc_out=None,
-                   encoder: bool = False, remat: bool = False):
+                   encoder: bool = False, remat: bool = False,
+                   env: ShardEnv = ONE_DEVICE):
     """Every layer in order, each with its own window (the encoder's,
     ``encoder=True``: all global and non-causal); with ``cache``, each
     layer's decode state stored there (``_store``); with ``remat``, each
     layer recomputed in the backward pass, only its input kept."""
-    S = h.shape[1]
+    S = h.shape[1] if env.cell is None else env.seq
     positions = torch.arange(S, device=h.device)[None, :]
     if encoder:
         layers, windows, causal = (params.enc_layers,
@@ -373,9 +641,9 @@ def _stack_forward(params: Transformer, cfg: ArchConfig, h,
                            preserve_rng_state=False)
             continue
         h, state = _block_forward(lp, h, cfg, w, positions, mode, enc_out,
-                                  causal)
+                                  causal, env)
         if cache is not None:
-            _store(cache, li, state)
+            _store(cache, li, state, env)
     return h
 
 
@@ -407,6 +675,70 @@ def _whisper_encode(params: Transformer, frames, cfg: ArchConfig,
 
 
 # ---------------------------------------------------------------------------
+# over a mesh
+# ---------------------------------------------------------------------------
+
+def _on_mesh(env: ShardEnv, cfg: ArchConfig, what: str) -> bool:
+    """True where ``what`` runs on the cells of a mesh of more than one;
+    a hybrid, ssm or audio model raises there."""
+    if env.cells == 1:
+        return False
+    if cfg.family in ("hybrid", "ssm", "audio"):
+        raise NotImplementedError(
+            f"{what}: the {cfg.family} family on a mesh of more than one "
+            f"cell is not ported (ROADMAP queue 1 item 5: the dense, vlm "
+            f"and moe families serve over a mesh)")
+    return True
+
+
+def _batch_shape(batch: dict) -> tuple[int, int]:
+    x = batch["embeds"] if "embeds" in batch else batch["tokens"]
+    return tuple(np.shape(x)[:2])
+
+
+def _on_cells(params, batch: dict, cfg: ArchConfig, env: ShardEnv, body,
+              what: str):
+    """``body(local params, local batch, cell env)`` on every cell, each
+    given its block of ``batch`` as the residual stream is laid out
+    (``env.act()``). Returns the cells' results (an object array)."""
+    placed = _placed(params, env, what)
+    B, S = _batch_shape(batch)
+    whole = {k: v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
+             for k, v in batch.items()}
+
+    def cell_fn(cell):
+        cenv = env.at(cell, B, S)
+        act = cenv.act()
+        local = {k: cell.take(v, P(*act[:v.ndim])) for k, v in whole.items()}
+        return body(placed.local(cell), local, cenv)
+
+    return run_cells(env.mesh, cell_fn)
+
+
+def _gathered(env: ShardEnv, blocks, B: int, spec) -> torch.Tensor:
+    """The cells' blocks (each laid out as ``spec``'s batch entry says,
+    the rest whole) as one tensor on the mesh's first cell."""
+    x0 = blocks.flat[0]
+    shape = (B,) + tuple(x0.shape[1:])
+    lay = NamedSharding(env.mesh, P(spec[0]))
+    return gather(Sharded(lay, shape, x0.dtype, blocks))
+
+
+def _logits(params: Transformer, h, cfg: ArchConfig,
+            env: ShardEnv) -> torch.Tensor:
+    """The LM head: ``unembed_logits``; in a cell whose block of the
+    (padded) vocabulary is narrower, its logits (pad ids masked by their
+    global id) gathered over the model axis."""
+    V_loc = params.unembed.shape[0]
+    if env.cell is None or V_loc == pad_vocab(cfg.vocab_size):
+        return unembed_logits(h, params.unembed, cfg.vocab_size)
+    lo = env.cell.block(env.model_axis) * V_loc
+    return env.cell.all_gather(
+        unembed_logits(h, params.unembed, cfg.vocab_size, offset=lo),
+        env.model_axis, -1)
+
+
+# ---------------------------------------------------------------------------
 # full-model passes
 # ---------------------------------------------------------------------------
 
@@ -417,7 +749,13 @@ def forward_loss(params: Transformer, batch: dict, cfg: ArchConfig,
     against ``labels``, a scalar that autograd differentiates back to
     every parameter. Each layer is rematerialized in the backward pass.
     An audio batch carries ``frames`` for the encoder and ``tokens`` for
-    the decoder."""
+    the decoder. On a mesh of one cell the parameters must be on its
+    device; training over a larger mesh is not ported."""
+    if env.cells > 1:
+        raise NotImplementedError(
+            "forward_loss: training over a mesh of more than one cell is "
+            "not ported (ROADMAP queue 1 item 5, the training slice)")
+    _placed(params, env, "forward_loss")
     enc = (_whisper_encode(params, batch["frames"], cfg, env, remat=True)
            if cfg.family == "audio" else None)
     h = _stack_forward(params, cfg, _embed(params, batch), "train",
@@ -428,8 +766,8 @@ def forward_loss(params: Transformer, batch: dict, cfg: ArchConfig,
 
 
 @torch.no_grad()
-def prefill(params: Transformer, batch: dict, cfg: ArchConfig,
-            env: ShardEnv, cache_len: int | None = None):
+def prefill(params, batch: dict, cfg: ArchConfig, env: ShardEnv,
+            cache_len: int | None = None):
     """Prefill pass: returns (last-position logits (B, 1, V_pad) fp32, the
     cache). A K/V cache holds ``cache_len`` positions (default: the
     prompt's S, the reference's layout; for audio ``max_decode_len``, the
@@ -437,10 +775,17 @@ def prefill(params: Transformer, batch: dict, cfg: ArchConfig,
     it; a hybrid ring holds ``min(sliding_window, cache_len)``. An ssm
     cache is the recurrent state alone. An audio batch also carries
     ``frames``: the encoder runs first, and the cache keeps each decoder
-    layer's cross K/V over its output (``ck``, ``cv``)."""
+    layer's cross K/V over its output (``ck``, ``cv``).
+
+    On a mesh, ``params`` are placed for it (``place_params``); over more
+    than one cell the logits come back on the mesh's first cell and the
+    cache's K/V are ``Sharded`` by ``cache_shardings``."""
+    if _on_mesh(env, cfg, "prefill"):
+        return _prefill_cells(params, batch, cfg, env, cache_len)
+    params = _placed(params, env, "prefill")
     h = _embed(params, batch)
     B, S, _ = h.shape
-    enc = (_whisper_encode(params, batch["frames"], cfg, env)
+    enc = (_whisper_encode(params, batch["frames"], cfg)
            if cfg.family == "audio" else None)
     default = cfg.max_decode_len if enc is not None else S
     C = default if cache_len is None else cache_len
@@ -457,6 +802,25 @@ def prefill(params: Transformer, batch: dict, cfg: ArchConfig,
     return unembed_logits(h, params.unembed, cfg.vocab_size), cache
 
 
+def _prefill_cells(params, batch, cfg: ArchConfig, env: ShardEnv,
+                   cache_len: int | None):
+    B, S = _batch_shape(batch)
+    C = S if cache_len is None else cache_len
+    if C < S:
+        raise ValueError(f"prefill: cache_len {C} is shorter than the "
+                         f"prompt ({S})")
+    cache = {**init_cache(cfg, ShapeSpec("prefill", C, B, "prefill"),
+                          env=env), "pos": S}
+
+    def body(p, b, e):
+        h = _stack_forward(p, cfg, _embed(p, b), cache=cache, env=e)
+        h = rms_norm(e.to_full(h)[:, -1:], p.final_norm, cfg.norm_eps)
+        return _logits(p, h, cfg, e)
+
+    out = _on_cells(params, batch, cfg, env, body, "prefill")
+    return _gathered(env, out, B, env.at(None, B, S).full()), cache
+
+
 def _ring(cfg: ArchConfig, slots: int) -> bool:
     """A hybrid K/V cache as long as the window: its slots are reused
     (the oldest position leaves the window as the new one enters)."""
@@ -464,11 +828,12 @@ def _ring(cfg: ArchConfig, slots: int) -> bool:
 
 
 @torch.no_grad()
-def decode_step(params: Transformer, cache: dict, batch: dict,
-                cfg: ArchConfig, env: ShardEnv):
+def decode_step(params, cache: dict, batch: dict, cfg: ArchConfig,
+                env: ShardEnv):
     """One-token decode against a populated cache. Writes the token's
-    state into the cache in place (no copy of the whole cache per step)
-    and returns (logits (B, 1, V_pad), the cache with ``pos`` advanced)."""
+    state into the cache in place (no copy of the whole cache per step;
+    over a mesh, each cell into its block) and returns (logits (B, 1,
+    V_pad), the cache with ``pos`` advanced)."""
     pos = cache["pos"]
     if "k" in cache:
         R = cache["k"].shape[2]
@@ -477,6 +842,22 @@ def decode_step(params: Transformer, cache: dict, batch: dict,
                 f"decode_step: the cache's {R} positions are all used; "
                 f"prefill with cache_len= the prompt plus the tokens to "
                 f"decode")
+    if _on_mesh(env, cfg, "decode_step"):
+        def body(p, b, e):
+            h = _embed(p, b)
+            posv = torch.full((1, 1), pos, dtype=torch.int32,
+                              device=h.device)
+            for li, (lp, w) in enumerate(zip(p.layers,
+                                             _layer_windows(cfg))):
+                h = _decode_block(lp, h, cfg, w, pos, posv, cache, li, e)
+            h = rms_norm(h, p.final_norm, cfg.norm_eps)
+            return _logits(p, h, cfg, e)
+
+        B = _batch_shape(batch)[0]
+        out = _on_cells(params, batch, cfg, env, body, "decode_step")
+        return (_gathered(env, out, B, env.at(None, B, 1).full()),
+                {**cache, "pos": pos + 1})
+    params = _placed(params, env, "decode_step")
     h = _embed(params, batch)
     posv = torch.full((1, 1), pos, dtype=torch.int32, device=h.device)
     for li, (lp, w) in enumerate(zip(params.layers, _layer_windows(cfg))):
@@ -486,12 +867,50 @@ def decode_step(params: Transformer, cache: dict, batch: dict,
     return logits, {**cache, "pos": pos + 1}
 
 
+def _decode_attend_cell(q, k, v, cfg: ArchConfig, cache: dict, li: int,
+                        pos: int, window: int, env: ShardEnv):
+    """A cell's decode attention over its block of the placed cache: the
+    new token's K/V relaid out as the cache is and written where the cell
+    holds slot ``pos``; the queries relaid out to the cache's batch (and
+    KV heads where they are split) and attended there, or, where the
+    cache's sequence is split, every head attended over the cell's slots
+    and combined over the sequence's axis (``flash_decode_partial``).
+    Returns the output laid out as ``q``."""
+    cell = env.cell
+    ax = env.model_axis
+    b, s, kv, _ = _cache_layout(cache["k"])
+    b_now = env.full()[0]
+    kv_now = ax if k.shape[2] < cfg.n_kv_heads else None
+    h_now = ax if q.shape[2] < cfg.n_heads else None
+    kc, vc = cache["k"].local(cell)[li], cache["v"].local(cell)[li]
+    lo = cell.block(s) * kc.shape[1]
+    for new, dst in ((k, kc), (v, vc)):
+        new = cell.relayout(new, (b_now, None, kv_now), (b, None, kv, None))
+        if lo <= pos < lo + dst.shape[1]:
+            dst[:, pos - lo] = new[:, 0]
+    clen = min(pos + 1, cache["k"].shape[2])
+    q_now = (b_now, None, h_now, None)
+    if s:   # the sequence split over the cells: flash decode
+        q_all = cell.relayout(q, q_now, (b, None, None, None))
+        o = attn_lib.flash_decode_partial(q_all, kc, vc, clen, lo, cell, s,
+                                          window)
+        return cell.relayout(o, (b, None, None, None), q_now)
+    h_att = kv or h_now   # heads split as the cache's KV heads, else as q's
+    q_att = cell.relayout(q, q_now, (b, None, h_att, None))
+    ka, va = (_kv_groups(kc, vc, cfg, q_att.shape[2], env) if not kv
+              else (kc, vc))
+    o = attn_lib.decode_attention(q_att, ka, va, clen, window=window)
+    return cell.relayout(o, (b, None, h_att, None), q_now)
+
+
 def _decode_block(p: Tree, h, cfg: ArchConfig, window: int, pos: int,
-                  posv, cache: dict, li: int):
+                  posv, cache: dict, li: int, env: ShardEnv = ONE_DEVICE):
     """Single-token block forward; updates layer ``li``'s slices of the
     cache. K/V go to slot ``pos % R`` (R >= pos + 1 but for a full ring,
     which holds exactly the window, so it attends every slot). An audio
-    layer then cross-attends every position of the cached encoder K/V."""
+    layer then cross-attends every position of the cached encoder K/V.
+    In a cell the heads are its own, and where ``wo`` is split the
+    output is the sum of the cells' products."""
     eps = cfg.norm_eps
     if cfg.family == "ssm":
         y, (cache["shift_tm"][li], cache["wkv"][li]) = rwkv_time_mix(
@@ -502,19 +921,26 @@ def _decode_block(p: Tree, h, cfg: ArchConfig, window: int, pos: int,
             p, rms_norm(h, p.ln2, eps), cache["shift_cm"][li])
         return h + y
     hn = rms_norm(h, p.ln1, eps)
-    B = hn.shape[0]
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    kc, vc = cache["k"][li], cache["v"][li]
-    R = kc.shape[1]
+    B, hd = hn.shape[0], cfg.hd
+    H, KV = p.attn.wq.shape[1] // hd, p.attn.wk.shape[1] // hd
     q = rope(_proj(hn, p.attn.wq).reshape(B, 1, H, hd), posv,
              cfg.rope_theta)
-    kc[:, pos % R] = rope(_proj(hn, p.attn.wk).reshape(B, 1, KV, hd), posv,
-                          cfg.rope_theta)[:, 0]
-    vc[:, pos % R] = _proj(hn, p.attn.wv).reshape(B, KV, hd)
-    ao = attn_lib.decode_attention(
-        q, kc, vc, min(pos + 1, R),
-        window=0 if cfg.family == "hybrid" else window)
+    k = rope(_proj(hn, p.attn.wk).reshape(B, 1, KV, hd), posv,
+             cfg.rope_theta)
+    v = _proj(hn, p.attn.wv).reshape(B, 1, KV, hd)
+    if env.cell is None:
+        kc, vc = cache["k"][li], cache["v"][li]
+        R = kc.shape[1]
+        kc[:, pos % R] = k[:, 0]
+        vc[:, pos % R] = v[:, 0]
+        ao = attn_lib.decode_attention(
+            q, kc, vc, min(pos + 1, R),
+            window=0 if cfg.family == "hybrid" else window)
+    else:
+        ao = _decode_attend_cell(q, k, v, cfg, cache, li, pos, window, env)
     ao = _proj(ao.reshape(B, 1, H * hd), p.attn.wo)
+    if H < cfg.n_heads:
+        ao = env.sum_model(ao)
     if cfg.family == "hybrid":
         mo, (cache["ssm"][li], cache["conv"][li]) = mamba_forward(
             p.mamba, hn, (cache["ssm"][li], cache["conv"][li]))
@@ -526,17 +952,27 @@ def _decode_block(p: Tree, h, cfg: ArchConfig, window: int, pos: int,
         co = attn_lib.decode_attention(qc.reshape(B, 1, H, hd), ck,
                                        cache["cv"][li], ck.shape[1])
         h = h + _proj(co.reshape(B, 1, H * hd), p.cross.wo)
-    return h + _ffn_apply(p.ffn, rms_norm(h, p.ln2, eps), cfg, "decode")
+    return h + _ffn_apply(p.ffn, rms_norm(h, p.ln2, eps), cfg, "decode",
+                          env)
 
 
 @torch.no_grad()
-def encode(params: Transformer, batch: dict, cfg: ArchConfig,
+def encode(params, batch: dict, cfg: ArchConfig,
            env: ShardEnv) -> torch.Tensor:
     """Sequence embedding: final-norm hidden state at the last position,
     unit-normalized fp32 (B, d) — the representation the FNS retrieval
     layer indexes (DESIGN.md §4). An audio arch runs its decoder stack
-    alone (no frames, no cross-attention), as the reference does."""
-    h = _stack_forward(params, cfg, _embed(params, batch))
-    hf = rms_norm(h[:, -1], params.final_norm, cfg.norm_eps).float()
-    return hf / torch.clamp(torch.linalg.vector_norm(hf, dim=-1,
-                                                     keepdim=True), min=1e-9)
+    alone (no frames, no cross-attention), as the reference does. Over a
+    mesh of more than one cell the embeddings come back on its first
+    cell."""
+    def body(p, b, e):
+        h = e.to_full(_stack_forward(p, cfg, _embed(p, b), env=e))
+        hf = rms_norm(h[:, -1], p.final_norm, cfg.norm_eps).float()
+        return hf / torch.clamp(torch.linalg.vector_norm(
+            hf, dim=-1, keepdim=True), min=1e-9)
+
+    if not _on_mesh(env, cfg, "encode"):
+        return body(_placed(params, env, "encode"), batch, ONE_DEVICE)
+    B, S = _batch_shape(batch)
+    out = _on_cells(params, batch, cfg, env, body, "encode")
+    return _gathered(env, out, B, env.at(None, B, S).full())

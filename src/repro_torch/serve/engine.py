@@ -4,21 +4,28 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.device_atlas import resolve_device
+from repro_torch.launch.mesh import lead_device
 from repro_torch.models.transformer import (ShardEnv, Transformer,
-                                            decode_step, on_device, prefill)
+                                            decode_step, on_device,
+                                            place_params, prefill)
 
 
 class ServeEngine:
     """Generation with a dense, vlm, moe, hybrid or ssm LM on ``device``
     (None means CUDA), with ``params`` there or a copy of them (the
-    caller's module does not move)."""
+    caller's module does not move). Over ``env``'s mesh (``device`` then
+    None) the parameters are placed once by ``param_shardings`` (views,
+    no second copy, where the cells share their device; on a mesh of one
+    cell, on its device), every pass runs on the cells, and the tokens
+    are sampled on the mesh's first cell (the engine's ``device``); a
+    larger mesh serves the dense, vlm and moe families."""
 
     def __init__(self, cfg: ArchConfig, env: ShardEnv, params: Transformer,
                  device=None):
         self.cfg, self.env = cfg, env
-        self.device = resolve_device(device)
-        self.params = on_device(params, self.device)
+        self.device = lead_device(env.mesh, device)
+        self.params = place_params(params, env) if env.mesh is not None \
+            else on_device(params, self.device)
 
     def generate(self, tokens, max_new: int = 32, temperature: float = 0.0,
                  generator: torch.Generator | None = None) -> torch.Tensor:

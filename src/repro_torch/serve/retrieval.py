@@ -32,7 +32,7 @@ from repro_torch.core.types import Dataset, FilterPredicate, Query, normalize
 from repro_torch.launch.mesh import (index_axis_size, lead_device,
                                      query_axis_name, staging_device)
 from repro_torch.models.transformer import (ShardEnv, Transformer, encode,
-                                            on_device)
+                                            on_device, place_params)
 
 # singleton (and any sub-minimum) arrivals pad up to this bucket, so
 # every small arrival runs at one of a few batch shapes (value originates
@@ -725,14 +725,17 @@ class RetrievalService:
 
 class EncodedRetriever:
     """LM encoder + RetrievalService: the end-to-end RAG serving path.
-    The encoder runs where the service does (``service.device``), with
-    ``params`` there or a copy of them (the caller's module does not
-    move)."""
+    Without a mesh the encoder runs where the service does
+    (``service.device``), with ``params`` there or a copy of them (the
+    caller's module does not move); over ``env``'s mesh it runs on the
+    cells with ``params`` placed there (``place_params``), whatever the
+    service's own ``mesh=``."""
 
     def __init__(self, cfg: ArchConfig, env: ShardEnv, params: Transformer,
                  service: RetrievalService):
         self.cfg, self.env = cfg, env
-        self.params = on_device(params, service.device)
+        self.params = (on_device(params, service.device) if env.mesh is None
+                       else place_params(params, env))
         self.service = service
 
     def embed_tokens(self, tokens) -> np.ndarray:

@@ -151,9 +151,11 @@ def test_restore_latest_falls_back_to_readable(tmp_path):
 
 
 def test_restore_with_shardings_raises(tmp_path):
+    """Placement by sharding is ported (``tests/test_torch_lm_mesh.py``);
+    a shardings tree without a ``NamedSharding`` for a leaf raises."""
     t = _tree()
     ckpt.save(str(tmp_path), 1, t)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="no NamedSharding"):
         ckpt.restore(str(tmp_path), 1, t, shardings={"any": None})
 
 

@@ -541,5 +541,7 @@ def test_unported_families_raise(name):
 
 
 def test_shard_env_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="mesh=None"):
+    """A mesh is ported (``tests/test_torch_lm_mesh.py``); anything but
+    the port's ``Mesh`` is refused."""
+    with pytest.raises(TypeError, match="Mesh"):
         tf.ShardEnv(object())
