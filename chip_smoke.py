@@ -130,6 +130,18 @@ inside two others, the LM mesh path's retrieval inside the rag path):
   host's; dbrx-132b at full width and 1 layer, the loss and gradients
   through the MoE's capacity path (finite, none zero) and its bf16
   token losses held to fp32 on the tokens whose experts agree;
+* training over a device mesh (``train_mesh``, a segment of its own
+  with its own counts; it launches none of the five kernels), every
+  cell on the card: llama3.2-1b whole on 2 x 4 (tp, ZeRO-1) in fp32,
+  its step-1 loss and every gradient leaf held to the meshless step's,
+  the update of the same gradients held to the meshless update, then
+  three ``make_train_step`` steps each way (ms and kernels a step, peak
+  memory, the placed m/v's bytes); ZeRO-1 off and on at llama's widths
+  and 8 of its 16 layers on 4 x 2 (dp) in bf16, ``tests/test_zero1.py``'s
+  bounds and the meshless losses; ``TrainLoop`` on SmolLM-135M in fp32,
+  6 steps on 1 x 3 (tp) straight and an elastic resume of its step-3
+  checkpoint onto 3 x 1 (dp, ZeRO-1) by ``try_resume(shardings)``, the
+  losses after it held to the straight run's;
 * the cost model (``cost_model_path``; it launches none of the five
   kernels), last: the dry-run CLI (``python -m
   repro_torch.launch.dryrun``), one process a cell at the lowest
@@ -3522,6 +3534,343 @@ def train_path(dev, card, log) -> dict:
     return launches
 
 
+# -- training over a mesh -------------------------------------------------------
+
+TMESH_ARCH = "llama3.2-1b"
+TMESH_SHAPE = (2, 4)      # data x model cells, every one on the card, tp
+TMESH_BATCH, TMESH_SEQ, TMESH_STEPS = 8, 128, 3
+# the mesh's fp32 step held to the meshless one on the same weights and
+# batches (FAMILY_TOL's bounds: the step-1 loss, each step-1 gradient
+# leaf of its largest magnitude, the update of the same gradients in lr)
+TMESH_TOL = dict(loss=2e-5, leaf=1e-4, update_lr=1e-3)
+# ZeRO-1 off and on (tests/test_zero1.py's setting: 4 x 2 "dp", bf16
+# compute, lr 1e-2, one batch three times) and its bounds; the losses
+# also held to the meshless run's
+ZERO1_SHAPE, ZERO1_LR = (4, 2), 1e-2
+ZERO1_LAYERS = 8          # of llama's 16: every cell's partial gradient of
+# the replicated model lives on the one card (8 x its fp32 bytes; 16
+# layers would not fit). At 4, lr 1e-2 drove the loss 11.8 -> 23.0 in
+# three steps and the runs 2.3% apart (PERF.md section 4)
+ZERO1_TOL = dict(step1=1e-5, rtol=2e-3, meshless=1e-2)
+# TrainLoop on SmolLM-135M (launch/train.py --full's model) in fp32: 6
+# steps on 1 x 3 "tp" straight (a checkpoint after 3), and an elastic
+# resume of that checkpoint onto 3 x 1 "dp" with ZeRO-1 for 3 more (the
+# batch divides 3)
+ELASTIC_FROM, ELASTIC_TO = ((1, 3), "tp", False), ((3, 1), "dp", True)
+ELASTIC_BATCH, ELASTIC_AT, ELASTIC_STEPS = 6, 3, 6
+
+
+def device_kernels(fn) -> int:
+    """Kernels (and copies) one call of ``fn`` ran on the card, counted
+    from the raw events of a trace of the card's activity alone:
+    ``step_kernels``'s ``key_averages`` over host and device events costs
+    tens of seconds for a mesh step's ~40 k kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA)
+
+
+def placed_bytes(tree) -> int:
+    """Bytes of the distinct storages a placed tree's blocks hold (one
+    copy a device, not one a cell)."""
+    from repro_torch.optim.adamw import leaves
+    seen = {}
+    for leaf in leaves(tree):
+        for x in leaf.shards.flat:
+            if x is not None:
+                st = x.untyped_storage()
+                seen[(x.device, st.data_ptr())] = st.nbytes()
+    return sum(seen.values())
+
+
+def mesh_env(shape, policy, dev):
+    import numpy as np
+
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.transformer import ShardEnv
+    return ShardEnv(make_local_mesh(*shape, devices=[dev] * int(
+        np.prod(shape))), policy=policy)
+
+
+def mesh_opt(cfg, env, params, zero1: bool):
+    """``init_opt_state`` of placed parameters by ``opt_shardings``."""
+    import torch
+
+    from repro_torch.launch.shardings import opt_shardings
+    from repro_torch.optim.adamw import init_opt_state
+    return init_opt_state(params, opt_shardings(
+        cfg, env.mesh, {"m": params, "v": params, "step": torch.zeros(())},
+        env.policy, zero1))
+
+
+def mesh_vs_meshless(dev, card, log) -> None:
+    """llama3.2-1b at its published widths (random weights, seed 0) on a
+    2 x 4 mesh of cells on the card, tp, ZeRO-1, in fp32: the step-1
+    loss and every gradient leaf over the mesh held to the meshless ones
+    (TMESH_TOL), ``adamw_update`` of the meshless gradients placed on the
+    mesh held to the meshless update, then TMESH_STEPS ``make_train_step``
+    steps each way on ``TokenPipeline`` batches (ms a step, kernels a
+    step from ``device_kernels``, peak memory, the placed m/v's bytes:
+    one copy on the card)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.placement import gather, place_tree
+    from repro_torch.launch.shardings import param_shardings
+    from repro_torch.models.transformer import (ShardEnv, forward_loss,
+                                                init_params, place_params)
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
+                                         init_opt_state, leaves,
+                                         leaves_with_path, make_train_step,
+                                         value_and_grad)
+    t0 = time.time()
+    cfg = get_config(TMESH_ARCH)
+    one = ShardEnv(None)
+    env = mesh_env(TMESH_SHAPE, "tp", dev)
+    pipe = TokenPipeline(cfg.vocab_size, TMESH_BATCH, TMESH_SEQ, seed=0)
+    ocfg = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=1,
+                       total_steps=TMESH_STEPS)
+    secs: dict = {}   # seconds of each part, ending in a sync
+    with Fp32():
+        params = init_params(cfg, 0, dev)
+        p_bytes = sum(p.numel() * p.element_size()
+                      for p in params.parameters())
+        placed = place_params(params, env)
+        batch = pipe.get_batch(0)
+        t = time.time()
+        loss1, g1 = value_and_grad(
+            lambda p: forward_loss(p, batch, cfg, one), params)
+        loss1 = float(loss1)
+        secs["meshless_grads"] = time.time() - t
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        t = time.time()
+        loss_m, gm = value_and_grad(
+            lambda p: forward_loss(p, batch, cfg, env), placed)
+        loss_m = float(loss_m)
+        secs["mesh_grads"] = time.time() - t
+        grad_peak = torch.cuda.max_memory_allocated() - m0
+        t = time.time()
+        worst, err = None, 0.0
+        for (path, a), b in zip(leaves_with_path(g1), leaves(gm)):
+            e = float((gather(b) - a).abs().max() / a.abs().max().clamp(
+                min=1e-30))
+            if e >= err:
+                worst, err = "/".join(path), e
+        del gm
+        opt = mesh_opt(cfg, env, placed, True)
+        mv_bytes = placed_bytes({"m": opt["m"], "v": opt["v"]})
+        want = adamw_update(g1, init_opt_state(params), params, ocfg)[0]
+        got = adamw_update(place_tree(g1, param_shardings(
+            cfg, env.mesh, params, "tp")), opt, placed, ocfg)[0]
+        upd = max(float((gather(b) - a.detach()).abs().max())
+                  for a, b in zip(leaves(want), leaves(got)))
+        upd /= TRAIN_LR
+        del g1, want, got, opt
+        secs["checks"] = time.time() - t
+        torch.cuda.empty_cache()
+        runs = {}
+        for name in ("meshless", "mesh"):
+            e, p = (one, params) if name == "meshless" else (env, placed)
+            o = (init_opt_state(p) if name == "meshless"
+                 else mesh_opt(cfg, env, p, True))
+            step = make_train_step(cfg, e, ocfg)
+            losses, times = [], []
+            for i in range(TMESH_STEPS):
+                torch.cuda.synchronize()
+                t = time.time()
+                p, o, m = step(p, o, pipe.get_batch(i))
+                losses.append(float(m["loss"]))
+                times.append((time.time() - t) * 1e3)
+            t = time.time()
+            kernels = device_kernels(lambda: step(p, o, pipe.get_batch(0)))
+            secs[name + "_profiled_step"] = time.time() - t
+            runs[name] = dict(losses=losses, step_ms=times,
+                              step_kernels=kernels)
+            del p, o, step
+            torch.cuda.empty_cache()
+    rel = abs(loss_m - loss1) / abs(loss1)
+    log("train_mesh_llama", arch=cfg.name, mesh=list(TMESH_SHAPE),
+        policy="tp", zero1=True, layers=cfg.n_layers, d=cfg.d_model,
+        batch=TMESH_BATCH, seq=TMESH_SEQ, params_gb=p_bytes / 1e9,
+        mv_gb=mv_bytes / 1e9, mv_over_params=mv_bytes / p_bytes,
+        grad_peak_gb=grad_peak / 1e9, loss_mesh=loss_m,
+        loss_meshless=loss1, loss_rel_err=rel, grad_worst_leaf=worst,
+        grad_rel_err=err, update_err_lr=upd, tol=TMESH_TOL,
+        mesh_steps=runs["mesh"], meshless_steps=runs["meshless"],
+        max_memory_gb=torch.cuda.max_memory_allocated() / 1e9, secs=secs,
+        s=time.time() - t0, card=card)
+    check(rel <= TMESH_TOL["loss"], f"train_mesh: step-1 loss mesh "
+          f"{loss_m} vs meshless {loss1}")
+    check(err <= TMESH_TOL["leaf"], f"train_mesh: gradient {worst} "
+          f"{err:.2e} of its largest from the meshless one")
+    check(upd <= TMESH_TOL["update_lr"], f"train_mesh: the update of the "
+          f"same gradients moved a parameter {upd:.2e} lr from meshless")
+    check(mv_bytes <= 2 * p_bytes * 1.01, f"train_mesh: placed m and v "
+          f"take {mv_bytes} bytes for {p_bytes} bytes of parameters")
+    check(all(map(math.isfinite, runs["mesh"]["losses"])),
+          "train_mesh: a non-finite loss")
+
+
+def zero1_on_off(dev, card, log) -> None:
+    """``tests/test_zero1.py``'s check at llama3.2-1b's widths
+    (ZERO1_LAYERS of its layers) on a 4 x 2 "dp" mesh of cells on the
+    card in bf16: three steps of one batch with ZeRO-1 off and on, the
+    step-1 losses within ZERO1_TOL["step1"] and all within its rtol
+    (whether they are equal is logged), and both held to the meshless
+    run's within ZERO1_TOL["meshless"]."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.transformer import (ShardEnv, init_params,
+                                                place_params)
+    from repro_torch.optim.adamw import (AdamWConfig, init_opt_state,
+                                         make_train_step)
+    t0 = time.time()
+    cfg = dataclasses.replace(get_config(TMESH_ARCH), n_layers=ZERO1_LAYERS)
+    ocfg = AdamWConfig(peak_lr=ZERO1_LR, warmup_steps=1)
+    batch = TokenPipeline(cfg.vocab_size, TMESH_BATCH, TMESH_SEQ,
+                          seed=0).get_batch(0)
+    params = init_params(cfg, 0, dev)
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = {}, {}
+    for name in ("meshless", "zero1_off", "zero1_on"):
+        if name == "meshless":
+            env = ShardEnv(None)
+            p, o = params, init_opt_state(params)
+        else:
+            env = mesh_env(ZERO1_SHAPE, "dp", dev)
+            p = place_params(params, env)
+            o = mesh_opt(cfg, env, p, name == "zero1_on")
+        step = make_train_step(cfg, env, ocfg)
+        ls = []
+        torch.cuda.synchronize()
+        t = time.time()
+        for _ in range(3):
+            p, o, m = step(p, o, batch)
+            ls.append(float(m["loss"]))
+        ms[name] = (time.time() - t) * 1e3 / 3
+        losses[name] = ls
+        del p, o, step
+        torch.cuda.empty_cache()
+    a, b, c = losses["zero1_off"], losses["zero1_on"], losses["meshless"]
+    vs = max(abs(x - y) / abs(y) for run in (a, b) for x, y in zip(run, c))
+    log("train_mesh_zero1", arch=cfg.name, layers=cfg.n_layers,
+        mesh=list(ZERO1_SHAPE), policy="dp", lr=ZERO1_LR, losses=losses,
+        equal=a == b, vs_meshless_rel=vs, step_ms=ms, tol=ZERO1_TOL,
+        max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        s=time.time() - t0, card=card)
+    check(abs(a[0] - b[0]) < ZERO1_TOL["step1"]
+          and np.allclose(a, b, rtol=ZERO1_TOL["rtol"]),
+          f"train_mesh: ZeRO-1 off {a} vs on {b}")
+    check(vs <= ZERO1_TOL["meshless"], f"train_mesh: mesh losses {a} {b} "
+          f"vs meshless {c}")
+
+
+def elastic_resume(dev, card, log) -> None:
+    """``TrainLoop`` on SmolLM-135M in fp32 over a 1 x 3 "tp" mesh:
+    ELASTIC_STEPS steps straight through (ELASTIC_AT with a checkpoint,
+    then the rest on the same state); a loop on 3 x 1 "dp" with ZeRO-1
+    (each layer's m/v on the data block of its layer: 30 layers over 3)
+    resumes the checkpoint by ``try_resume(shardings)`` and runs the
+    rest: its losses within RESUME_RTOL of the straight run's."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.shardings import opt_shardings, param_shardings
+    from repro_torch.models.transformer import init_params, place_params
+    from repro_torch.optim.adamw import AdamWConfig, make_train_step
+    t0 = time.time()
+    cfg = get_config(TRAIN_ARCH)
+    pipe = TokenPipeline(cfg.vocab_size, ELASTIC_BATCH, TRAIN_SEQ, seed=0)
+    ocfg = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=1,
+                       total_steps=ELASTIC_STEPS)
+    root = tempfile.mkdtemp(prefix="fns_train_mesh_")
+    try:
+        with Fp32():
+            params = init_params(cfg, 0, dev)
+            loops = {}
+            for name, (shape, pol, z) in (("from", ELASTIC_FROM),
+                                          ("to", ELASTIC_TO)):
+                env = mesh_env(shape, pol, dev)
+                p = place_params(params, env)
+                loops[name] = (env, p, mesh_opt(cfg, env, p, z),
+                               make_train_step(cfg, env, ocfg))
+            # straight through: ELASTIC_AT steps with a checkpoint, then
+            # the rest on the same state in memory
+            env, p, o, step = loops["from"]
+            d = os.path.join(root, "b")
+            first = make_loop(step, pipe, p, o, d, ELASTIC_AT,
+                              ckpt_every=ELASTIC_AT, async_ckpt=False)
+            want = [m["loss"] for m in first.run()["metrics"]]
+            save_s = time.time() - t0
+            rest = make_loop(step, pipe, first.params, first.opt_state,
+                             os.path.join(root, "a"), ELASTIC_STEPS)
+            want += [m["loss"] for m in rest.run(
+                start_step=ELASTIC_AT)["metrics"]]
+            tp_ms = statistics.median(first.step_times
+                                      + rest.step_times) * 1e3
+            save_s -= sum(first.step_times)
+            del first, rest, loops["from"]
+            env, p, o, step = loops["to"]
+            (shape, pol, z) = ELASTIC_TO
+            stacked = interop.reference_shapes(p)
+            where = {"params": param_shardings(cfg, env.mesh, stacked, pol),
+                     "opt": opt_shardings(cfg, env.mesh, {
+                         "m": stacked, "v": stacked,
+                         "step": torch.zeros(())}, pol, z)}
+            loop = make_loop(step, pipe, p, o, d, ELASTIC_STEPS)
+            t = time.time()
+            start = loop.try_resume(where)
+            resume_s = time.time() - t
+            check(start == ELASTIC_AT, f"train_mesh: resumed at {start}")
+            out = loop.run(start_step=start)
+            got = {m["step"]: m["loss"] for m in out["metrics"]}
+            ms = statistics.median(loop.step_times) * 1e3
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(sorted(got) == list(range(ELASTIC_AT, ELASTIC_STEPS)),
+          f"train_mesh: the resumed run logged steps {sorted(got)}")
+    errs = [abs(got[s] - want[s]) / abs(want[s]) for s in got]
+    log("train_mesh_elastic", arch=cfg.name, batch=ELASTIC_BATCH,
+        seq=TRAIN_SEQ, straight=want, resumed=got, rel_errs=errs,
+        rtol=RESUME_RTOL, resume_s=resume_s, tp_step_ms=tp_ms,
+        dp_step_ms=ms, save_s=save_s,
+        s=time.time() - t0, card=card)
+    check(max(errs) <= RESUME_RTOL, f"train_mesh: losses after the elastic "
+          f"resume {max(errs):.2e} from the straight run's")
+
+
+def train_mesh_path(dev, card, log) -> None:
+    """Training over a mesh, every cell on the card (``devices=[cuda:0] *
+    n``), launching none of K1-K5: ``mesh_vs_meshless``,
+    ``zero1_on_off`` and ``elastic_resume``, each freed before the
+    next."""
+    import torch
+    t = time.time()
+    for part in (mesh_vs_meshless, zero1_on_off, elastic_resume):
+        torch.cuda.empty_cache()
+        part(dev, card, log)
+    torch.cuda.empty_cache()
+    log("train_mesh_models", s=time.time() - t)
+
+
 # -- the cost model (launch/{dryrun,accounting,roofline}.py) and the hier atlas
 
 COST_ARCH = "smollm-135m"
@@ -3915,6 +4264,10 @@ def drive_paths(dev, card, log, report_path):
     by_path["lm_families"] = lm_families_path(dev, card, log)
     torch.cuda.empty_cache()
     by_path["train"] = train_path(dev, card, log)
+    torch.cuda.empty_cache()
+    train_mesh = Segments("train_mesh")
+    train_mesh.run(lambda: train_mesh_path(dev, card, log))
+    by_path["train_mesh"] = train_mesh.finish((), log)
     torch.cuda.empty_cache()
     by_path["cost_model"] = cost_model_path(dry_runs, ds, index, batches,
                                             dev, card, log)

@@ -23,6 +23,8 @@ from repro_torch.core.device_atlas import (DeviceAtlas, resolve_device,
 from repro_torch.core.graph import Graph
 from repro_torch.core.search import FiberIndex
 from repro_torch.core.types import FilterPredicate, Query
+from repro_torch.launch.placement import Sharded, gather, place, place_tree
+from repro_torch.launch.shardings import layer_sharding
 
 if TYPE_CHECKING:
     from repro_torch.models.transformer import Transformer
@@ -196,22 +198,40 @@ def params_from_reference(ref_params, cfg, device=None) -> Transformer:
                                        resolve_device(device)))
 
 
-def opt_state_from_reference(ref_opt, cfg, device=None) -> dict:
+def opt_state_from_reference(ref_opt, cfg, device=None,
+                             shardings=None) -> dict:
     """The reference's AdamW state ({"m", "v"} in its parameter layout,
-    an int32 "step") as the port's, on ``device`` (None means CUDA)."""
-    dev = resolve_device(device)
-    return {"m": _port_tree(ref_opt["m"], cfg, dev),
-            "v": _port_tree(ref_opt["v"], cfg, dev),
-            "step": torch.tensor(int(np.asarray(ref_opt["step"])),
-                                 dtype=torch.int32, device=dev)}
+    an int32 "step") as the port's, on ``device`` (None means CUDA); with
+    ``shardings`` (the port's layout of ``launch.shardings.
+    opt_shardings``, as ``init_opt_state`` of placed parameters takes
+    it), placed on their mesh instead."""
+    dev = torch.device("cpu") if shardings is not None else \
+        resolve_device(device)
+    out = {"m": _port_tree(ref_opt["m"], cfg, dev),
+           "v": _port_tree(ref_opt["v"], cfg, dev),
+           "step": torch.tensor(int(np.asarray(ref_opt["step"])),
+                                dtype=torch.int32, device=dev)}
+    return out if shardings is None else place_tree(out, shardings)
+
+
+def _tree_of(node):
+    """A ``Transformer``'s or ``MeshParams``' tree; any other node as it
+    is."""
+    return node.tree() if hasattr(node, "with_tree") else node
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, Sharded):
+        x = gather(x, "cpu")
+    return x.detach().cpu().numpy()
 
 
 def _reference_layout(node, leaf, stack):
-    """``node`` (a port tree; a module read through its ``tree()``) in the
-    reference's layout: each list of per-layer trees stacked leaf by leaf
-    under a leading L (``stack``), every other leaf through ``leaf``."""
-    if isinstance(node, torch.nn.Module):
-        node = node.tree()
+    """``node`` (a port tree; a module or ``MeshParams`` read through its
+    ``tree()``) in the reference's layout: each list of per-layer trees
+    stacked leaf by leaf under a leading L (``stack``), every other leaf
+    through ``leaf``."""
+    node = _tree_of(node)
     if isinstance(node, dict):
         return {k: _reference_layout(v, leaf, stack) for k, v in node.items()}
     if isinstance(node, list):
@@ -228,14 +248,13 @@ def _stack_trees(parts: list, stack):
 
 
 def tree_to_reference(tree) -> dict:
-    """A port tree (a ``Transformer``, AdamW state, or a dict holding
-    them) as the reference's pytree layout of host numpy arrays: the
-    layer lists stacked under L. What ``params_from_reference``,
-    ``opt_state_from_reference`` and ``tree_from_reference`` undo, and
-    what the training checkpoints hold (and what the reference's passes
-    and optimizer take)."""
-    return _reference_layout(
-        tree, lambda x: x.detach().cpu().numpy(), np.stack)
+    """A port tree (a ``Transformer`` or ``MeshParams``, AdamW state, or
+    a dict holding them; placed leaves gathered) as the reference's
+    pytree layout of host numpy arrays: the layer lists stacked under L.
+    What ``params_from_reference``, ``opt_state_from_reference`` and
+    ``tree_from_reference`` undo, and what the training checkpoints hold
+    (and what the reference's passes and optimizer take)."""
+    return _reference_layout(tree, _host, np.stack)
 
 
 def reference_shapes(tree) -> dict:
@@ -252,26 +271,56 @@ def reference_shapes(tree) -> dict:
     return _reference_layout(tree, leaf, stack)
 
 
-def tree_from_reference(ref_tree, like, device=None):
+def tree_from_reference(ref_tree, like, device=None, shardings=None):
     """A tree in the reference's layout (host arrays, e.g. a restored
     checkpoint) as a port tree shaped like ``like`` (a new ``Transformer``
-    where ``like`` holds one), each leaf a tensor on ``device`` (None
-    means CUDA) with the reference's dtype."""
-    return _from_reference(ref_tree, like, resolve_device(device))
+    or ``MeshParams`` where ``like`` holds one), each leaf a tensor on
+    ``device`` (None means CUDA) with the reference's dtype, or placed as
+    ``like``'s leaf is where that is ``Sharded``. ``shardings``: a tree
+    of ``NamedSharding``s in the reference's layout (its ``param_`` and
+    ``opt_shardings``, stacked leaves under L), which places every leaf
+    instead, each layer of a stacked leaf by ``layer_sharding``; placed
+    parameters then stay on their mesh and policy (``like``'s)."""
+    return _from_reference(ref_tree, like, device, shardings)
 
 
-def _from_reference(ref, node, dev):
+def _from_reference(ref, node, device, where):
     """``tree_from_reference``'s recursion, at module level: a
     self-recursive closure is a reference cycle, and the tensors it made
     would wait for the garbage collector."""
-    if isinstance(node, torch.nn.Module):
-        return node.with_tree(_from_reference(ref, node.tree(), dev))
+    if hasattr(node, "with_tree"):
+        mesh = getattr(getattr(node, "env", None), "mesh", None)
+        if where is not None and _mesh_of(where) is not mesh:
+            raise ValueError("tree_from_reference: the parameters are not "
+                             "placed on the shardings' mesh")
+        return node.with_tree(_from_reference(ref, node.tree(), device,
+                                              where))
     if isinstance(node, dict):
-        return {k: _from_reference(ref[k], v, dev) for k, v in node.items()}
+        return {k: _from_reference(ref[k], v, device,
+                                   None if where is None else where[k])
+                for k, v in node.items()}
     if isinstance(node, list):
-        return [_from_reference(_slice(ref, li), x, dev)
+        return [_from_reference(_slice(ref, li), x, device,
+                                None if where is None else
+                                _layer_of(where, li, len(node)))
                 for li, x in enumerate(node)]
-    return torch.from_numpy(_np(ref)).to(dev)
+    arr = torch.from_numpy(_np(ref))
+    if where is None and isinstance(node, Sharded):
+        where = node.sharding
+    return arr.to(resolve_device(device)) if where is None else \
+        place(arr, where)
+
+
+def _mesh_of(where):
+    while isinstance(where, dict):
+        where = next(iter(where.values()))
+    return where.mesh
+
+
+def _layer_of(where, li: int, layers: int):
+    if isinstance(where, dict):
+        return {k: _layer_of(v, li, layers) for k, v in where.items()}
+    return layer_sharding(where, li, layers)
 
 
 def _slice(ref, li):

@@ -8,10 +8,13 @@ is a grid of ``torch.device``s driven by one process
 
 * **placement**: ``P`` (one entry a dim: a mesh axis, a tuple of axes
   major to minor, or None), ``NamedSharding``, ``place`` (a tensor as
-  ``Sharded``, each cell's block of it) and ``gather`` (the blocks as one
-  tensor again). Cells on one device share storage: a sharded leaf's
+  ``Sharded``, each cell's block of it), ``gather`` (the blocks as one
+  tensor again) and ``reshard`` (the blocks of another layout, from
+  those held). Cells on one device share storage: a sharded leaf's
   blocks are views of one copy there, and a replicated leaf is one tensor
-  a device, not one a cell.
+  a device, not one a cell. ``psum_partials`` sums the cells' partials of
+  one tensor (a gradient, each cell's from its own pass) into its
+  layout: the gradient sync.
 * **cells**: ``run_cells(mesh, fn)`` calls ``fn(cell)`` for every cell,
   each in a thread of its own, and returns their results. The cells take
   turns, one running at a time in cell order, and hand over at their
@@ -91,9 +94,25 @@ def fit(mesh: Mesh, spec, shape) -> P:
 
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
-    """Where a tensor lives: ``mesh`` and a spec ``P``."""
+    """Where a tensor lives: ``mesh`` and a spec ``P``. ``stack`` =
+    (entry, layer, layers) says the tensor is layer ``layer`` of a stack
+    of ``layers`` whose leading dim the reference splits over ``entry``'s
+    axes (ZeRO-1 on the layer dim, ``shardings.opt_shardings``): only the
+    cells whose block of that dim holds the layer hold the tensor, each
+    its block under ``spec``; the others hold nothing."""
     mesh: Mesh
     spec: P
+    stack: tuple | None = None
+
+
+def holds(sharding: NamedSharding, index: tuple) -> bool:
+    """Whether the cell at ``index`` holds a block of a tensor laid out
+    by ``sharding`` (every cell does, unless ``stack`` says otherwise)."""
+    if sharding.stack is None:
+        return True
+    entry, layer, layers = sharding.stack
+    per = layers // axes_size(sharding.mesh, entry)
+    return block_index(sharding.mesh, index, entry) == layer // per
 
 
 def block_index(mesh: Mesh, index: tuple, entry) -> int:
@@ -129,7 +148,7 @@ class Sharded:
     """A tensor placed on a mesh: its global ``shape`` and ``dtype``, its
     ``sharding``, and each cell's block (``shards``, an object array of
     the mesh's shape; cells on one device that hold the same block hold
-    the same tensor)."""
+    the same tensor; None where a cell holds nothing, ``holds``)."""
 
     def __init__(self, sharding: NamedSharding, shape, dtype,
                  shards: np.ndarray):
@@ -168,6 +187,8 @@ def place(x, sharding: NamedSharding) -> Sharded:
     shards = np.empty(mesh.devices.shape, dtype=object)
     held: dict = {}
     for index in np.ndindex(mesh.devices.shape):
+        if not holds(sharding, index):
+            continue
         dev = mesh.devices[index]
         sl = block_slices(mesh, sharding.spec, x.shape, index)
         k = (dev, _key(sl))
@@ -187,11 +208,100 @@ def gather(s: Sharded, device=None) -> torch.Tensor:
     out = torch.empty(s.shape, dtype=s.dtype, device=dev)
     done = set()
     for index in np.ndindex(mesh.devices.shape):
+        if s.shards[index] is None:
+            continue
         sl = block_slices(mesh, s.spec, s.shape, index)
         if _key(sl) not in done:
             done.add(_key(sl))
             out[sl] = s.shards[index].to(dev)
     return out
+
+
+def _overlap(a: tuple, b: tuple) -> tuple | None:
+    """The global slices ``a`` and ``b`` share, None where they are
+    disjoint."""
+    out = tuple(slice(max(x.start, y.start), min(x.stop, y.stop))
+                for x, y in zip(a, b))
+    return out if all(s.start < s.stop for s in out) else None
+
+
+def _rel(sl: tuple, base: tuple) -> tuple:
+    return tuple(slice(s.start - b.start, s.stop - b.start)
+                 for s, b in zip(sl, base))
+
+
+def reshard(s: Sharded, sharding: NamedSharding) -> Sharded:
+    """``s`` laid out by ``sharding`` (same mesh): a cell whose block of
+    ``s`` holds its new block takes a view of it (a reduce-scatter's
+    second half, after ``psum_partials``); any other new block is
+    assembled once a device from the blocks that cover it, each read
+    from a cell on that device where one holds it (an all-gather)."""
+    mesh = s.mesh
+    have: dict = {}    # block key -> (slices, {device: tensor})
+    for index in np.ndindex(mesh.devices.shape):
+        x = s.shards[index]
+        if x is None:
+            continue
+        sl = block_slices(mesh, s.spec, s.shape, index)
+        have.setdefault(_key(sl), (sl, {}))[1].setdefault(
+            mesh.devices[index], x)
+    shards = np.empty(mesh.devices.shape, dtype=object)
+    made: dict = {}
+    for index in np.ndindex(mesh.devices.shape):
+        if not holds(sharding, index):
+            continue
+        dev = mesh.devices[index]
+        new = block_slices(mesh, sharding.spec, s.shape, index)
+        k = (dev, _key(new))
+        if k not in made:
+            own = s.shards[index]
+            held = None if own is None else block_slices(
+                mesh, s.spec, s.shape, index)
+            if held is not None and _overlap(new, held) == new:
+                made[k] = own[_rel(new, held)]
+            else:
+                out = torch.empty([x.stop - x.start for x in new],
+                                  dtype=s.dtype, device=dev)
+                for sl, on in have.values():
+                    both = _overlap(new, sl)
+                    if both is not None:
+                        src = on.get(dev, next(iter(on.values())))
+                        out[_rel(both, new)] = src[_rel(both, sl)].to(dev)
+                made[k] = out
+        shards[index] = made[k]
+    return Sharded(sharding, s.shape, s.dtype, shards)
+
+
+def psum_partials(partials: np.ndarray, sharding: NamedSharding,
+                  shape) -> Sharded:
+    """The sync of a tensor of ``shape`` laid out by ``sharding`` whose
+    every cell computed a partial of its block (``partials``, an object
+    array of the mesh's shape; None counts as zeros): for each block, the
+    partials of every cell that holds it (its batch block's share, and
+    where a cell's pass covers part of the model, that part's share of a
+    replicated leaf) summed in cell order. One sum a device that holds
+    the block, on it, so every device's copy is the whole gradient."""
+    mesh = sharding.mesh
+    blocks: dict = {}   # block key -> (block shape, cells in cell order)
+    for index in np.ndindex(mesh.devices.shape):
+        sl = block_slices(mesh, sharding.spec, shape, index)
+        blocks.setdefault(_key(sl), ([x.stop - x.start for x in sl],
+                                     []))[1].append(index)
+    shards = np.empty(mesh.devices.shape, dtype=object)
+    for blk_shape, cells in blocks.values():
+        sums: dict = {}
+        for index in cells:
+            dev = mesh.devices[index]
+            if dev not in sums:
+                total = None
+                for c in cells:
+                    if partials[c] is not None:
+                        x = partials[c].to(dev)
+                        total = x if total is None else total + x
+                sums[dev] = total if total is not None else torch.zeros(
+                    blk_shape, dtype=torch.float32, device=dev)
+            shards[index] = sums[dev]
+    return Sharded(sharding, shape, shards.flat[0].dtype, shards)
 
 
 def map_with_path(fn, tree, path=()):

@@ -17,8 +17,13 @@ batch a lane takes. Cells of any other axis (``model`` when it carries no
 lanes) would hold replicas that compute the same result; the port runs
 the first of them only.
 
-The optimizer state's shardings (``opt_shardings``, ZeRO-1) belong to
-the training slice over a mesh (ROADMAP queue 1 item 5).
+The optimizer state's (``opt_shardings``): ``m`` and ``v`` mirror the
+parameters' specs and ``step`` is replicated; ZeRO-1 adds the data axes
+on the first free dim they divide (``_zero1_spec``). On the reference's
+stacked layout that dim is often the layer dim L; the port's per-layer
+leaves have none, so a layer's ``m``/``v`` then sit whole on the data
+block that holds that layer in the reference's layout (``NamedSharding.
+stack``), and their spec is the rest of the stacked one.
 """
 from __future__ import annotations
 
@@ -119,6 +124,76 @@ def param_shardings(cfg: ArchConfig, mesh, specs, policy: str = "tp"):
         lambda path, leaf: NamedSharding(mesh, param_pspec(path, leaf, cfg,
                                                            n_model)),
         _tree(specs))
+
+
+def _zero1_spec(base: P, shape, mesh) -> P:
+    """Extend a param spec with the dp axes on the first divisible free
+    dim (ZeRO-1: optimizer state sharded over data parallelism)."""
+    dp = data_axis_names(mesh)
+    n_dp = _n(mesh, dp)
+    spec = list(base) + [None] * (len(shape) - len(base))
+    for i, (s, cur) in enumerate(zip(shape, spec)):
+        if cur is None and s % n_dp == 0 and s > 0:
+            spec[i] = dp
+            return P(*spec)
+    return base
+
+
+def _layer_of(names: list[str], cfg: ArchConfig):
+    """(layer index, layers) of a leaf of the port's per-layer tree (its
+    path ``layers/<i>/...`` or ``enc_layers/<i>/...``), else None."""
+    for i, n in enumerate(names[:-1]):
+        if n in ("layers", "enc_layers") and names[i + 1].isdigit():
+            count = cfg.n_layers if n == "layers" else cfg.n_enc_layers
+            return int(names[i + 1]), count
+    return None
+
+
+def opt_shardings(cfg: ArchConfig, mesh, opt_specs, policy: str = "tp",
+                  zero1: bool = False):
+    """m/v mirror the param specs; step replicated. zero1=True additionally
+    shards m/v over the data axes (ZeRO-1); the parameters stay in their
+    layout, and the update takes each cell's block of its gradient and
+    gathers the new parameters (``optim.adamw.adamw_update``).
+    ``opt_specs``: {"m", "v", "step"}, m and v parameter trees in the
+    reference's stacked layout or the port's per-layer one (a module, or
+    anything with shapes). A per-layer leaf gets the spec its stacked leaf
+    would have without the L entry; where ZeRO-1 puts the data axes on L,
+    it is held whole (by that spec) by the data block of its layer
+    (``NamedSharding.stack``)."""
+    n_model = mesh.shape["model"]
+
+    def assign(path, leaf):
+        names = _path_names(path)
+        if names and names[0] == "step":
+            return NamedSharding(mesh, P())
+        shape = tuple(leaf.shape)
+        base = (P(*((None,) * len(shape))) if policy == "dp"
+                else param_pspec(path[1:], leaf, cfg, n_model))  # sp == tp
+        if not zero1:
+            return NamedSharding(mesh, base)
+        layer = _layer_of(names, cfg)
+        if layer is None:
+            return NamedSharding(mesh, _zero1_spec(base, shape, mesh))
+        li, count = layer
+        spec = _zero1_spec(P(None, *base), (count,) + shape, mesh)
+        if spec[0] is None:
+            return NamedSharding(mesh, P(*spec[1:]))
+        return NamedSharding(mesh, P(*spec[1:]), stack=(spec[0], li, count))
+
+    return map_with_path(assign, {k: _tree(v) for k, v in opt_specs.items()})
+
+
+def layer_sharding(stacked: NamedSharding, layer: int,
+                   layers: int) -> NamedSharding:
+    """Layer ``layer``'s sharding of a leaf stacked under L that
+    ``stacked`` places (the reference's layout): the spec without its L
+    entry, held by the cells whose block of L holds the layer where L is
+    split (as ``opt_shardings`` gives the per-layer tree)."""
+    lead, rest = (tuple(stacked.spec) + (None,))[0], stacked.spec[1:]
+    if lead is None:
+        return NamedSharding(stacked.mesh, P(*rest))
+    return NamedSharding(stacked.mesh, P(*rest), stack=(lead, layer, layers))
 
 
 def _all_axes(mesh) -> tuple:

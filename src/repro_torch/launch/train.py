@@ -5,9 +5,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --full   # SmolLM-135M
     PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small --full
 
-Runs on CUDA unless ``--device`` names another device, on one device
-(``ShardEnv(None)``: training over a mesh is the next slice, ROADMAP
-queue 1 item 5). Weights are random
+Runs on CUDA unless ``--device`` names another device, on the
+reference's local mesh (``ShardEnv(make_local_mesh())``: one cell, on
+``--device``), the parameters placed on it once (``place_params``) and
+the optimizer state laid out by ``opt_shardings``. Weights are random
 (``init_params`` with seed 0), batches come from the step-indexed
 ``TokenPipeline`` (stub frame embeddings for whisper), and the loop
 resumes from the newest checkpoint in ``--ckpt-dir``, checkpoints every
@@ -21,7 +22,10 @@ import tempfile
 
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.data.tokens import TokenPipeline
-from repro_torch.models.transformer import ShardEnv, init_params
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.shardings import opt_shardings
+from repro_torch.models.transformer import (ShardEnv, init_params,
+                                            place_params)
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state, make_train_step
 from repro_torch.train.loop import LoopConfig, TrainLoop
 
@@ -42,9 +46,11 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch) if args.full else reduced_config(args.arch)
-    env = ShardEnv(None)
-    params = init_params(cfg, 0, args.device)
-    opt = init_opt_state(params)
+    env = ShardEnv(make_local_mesh(devices=[args.device]))
+    params = place_params(init_params(cfg, 0, args.device), env)
+    opt = init_opt_state(params, opt_shardings(
+        cfg, env.mesh, {"m": params, "v": params, "step": None},
+        env.policy))
     step = make_train_step(cfg, env, AdamWConfig(
         peak_lr=args.lr, warmup_steps=max(args.steps // 10, 1),
         total_steps=args.steps))

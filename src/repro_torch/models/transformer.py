@@ -20,7 +20,8 @@ autograd, each layer rematerialized in the backward pass
 without it. Every pass runs on the device the parameters live on.
 
 Over a device mesh (``ShardEnv(mesh, data_axes, model_axis, policy)``)
-the serving passes of the dense, vlm and moe families run on every cell
+the serving passes and ``forward_loss`` of the dense, vlm and moe
+families run on every cell
 (``launch.placement.run_cells``): the parameters placed by
 ``param_shardings`` (``MeshParams``: each cell's module of its blocks,
 views where the cell is on their device), the batch split as the
@@ -33,8 +34,19 @@ all_to_alls and psum (``models/moe.py``), the flash-decode combine where
 the cache's sequence is split, and the relayouts between the residual
 stream's layout and the full sequence's under "sp". A mesh of one cell
 runs the one-device pass on that cell's device, bit for bit; a hybrid,
-ssm or audio model on a larger mesh raises (ROADMAP queue 1 item 5), as
-does ``forward_loss``.
+ssm or audio model on a larger mesh raises (ROADMAP queue 1 item 5).
+
+``forward_loss`` over the cells is one autograd graph: each cell's
+module holds its own ``Parameter`` leaves (views of the placed blocks),
+the collectives are plain differentiable tensor ops between the cells'
+tensors, and the loss the cells return is combined on the caller's
+thread, where one backward runs (``optim.adamw.value_and_grad``). So each
+cell's gradient is a partial of its own, which the sync sums
+(``launch.placement.psum_partials``). Over more than one cell no layer
+is rematerialized: a recompute would run during the backward, on
+autograd's thread, where no cell runs to meet its collectives. That
+costs activation memory (``PERF.md`` §6: llama3.2-1b at 8 x 128 tokens
+on 2 x 4), not numbers.
 
 Two differences from the reference, on purpose, both in the decode
 cache (ROADMAP queue 3):
@@ -65,9 +77,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.core.device_atlas import resolve_device
 from repro_torch.launch.mesh import Mesh
-from repro_torch.launch.placement import (NamedSharding, P, Sharded, fit,
-                                          full_spec, gather, map_with_path,
-                                          place, place_tree, run_cells)
+from repro_torch.launch.placement import (NamedSharding, P, Sharded,
+                                          block_index, fit, full_spec,
+                                          gather, map_with_path, place,
+                                          place_tree, run_cells)
 from repro_torch.launch.shardings import param_shardings
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import (CDT, embed_lookup, init_dense,
@@ -299,21 +312,44 @@ def on_device(params: Transformer, device) -> Transformer:
 class MeshParams:
     """A ``Transformer`` placed on ``env``'s mesh by ``param_shardings``
     (``placed``: each leaf ``Sharded``) and, for each cell, a
-    ``Transformer`` of its blocks (``local``). Where every cell is on the
+    ``Transformer`` of its blocks (``local``), whose ``Parameter``s are
+    that cell's own autograd leaves. Where every cell is on the
     parameters' device the blocks are views of them and a replicated leaf
     is the tensor itself: placing costs no memory."""
 
     def __init__(self, params: Transformer, env: ShardEnv):
-        self.cfg, self.env = params.cfg, env
-        self.placed = place_tree(params.tree(), param_shardings(
-            params.cfg, env.mesh, params, env.policy))
+        self._build(params.cfg, env, place_tree(params.tree(), param_shardings(
+            params.cfg, env.mesh, params, env.policy)))
+
+    @classmethod
+    def from_placed(cls, cfg: ArchConfig, env: ShardEnv,
+                    placed: dict) -> "MeshParams":
+        """Parameters already placed on ``env``'s mesh (a tree in
+        ``tree()``'s layout of ``Sharded`` leaves laid out by
+        ``param_shardings``, as an update or a restore returns them):
+        no leaf is copied."""
+        out = cls.__new__(cls)
+        out._build(cfg, env, placed)
+        return out
+
+    def _build(self, cfg: ArchConfig, env: ShardEnv, placed: dict) -> None:
+        self.cfg, self.env, self.placed = cfg, env, placed
         self.cells = np.empty(env.mesh.devices.shape, dtype=object)
         for index in np.ndindex(self.cells.shape):
-            self.cells[index] = Transformer(params.cfg, map_with_path(
-                lambda _, leaf: leaf.local(index), self.placed))
+            self.cells[index] = Transformer(cfg, map_with_path(
+                lambda _, leaf: leaf.local(index), placed))
 
     def local(self, cell) -> Transformer:
         return self.cells[cell.index]
+
+    def tree(self) -> dict:
+        """The placed leaves (``Sharded``) in ``Transformer.tree()``'s
+        layout."""
+        return self.placed
+
+    def with_tree(self, tree: dict) -> "MeshParams":
+        """``from_placed`` on this mesh and policy."""
+        return MeshParams.from_placed(self.cfg, self.env, tree)
 
 
 def place_params(params, env: ShardEnv):
@@ -687,7 +723,7 @@ def _on_mesh(env: ShardEnv, cfg: ArchConfig, what: str) -> bool:
         raise NotImplementedError(
             f"{what}: the {cfg.family} family on a mesh of more than one "
             f"cell is not ported (ROADMAP queue 1 item 5: the dense, vlm "
-            f"and moe families serve over a mesh)")
+            f"and moe families serve and train over a mesh)")
     return True
 
 
@@ -742,7 +778,7 @@ def _logits(params: Transformer, h, cfg: ArchConfig,
 # full-model passes
 # ---------------------------------------------------------------------------
 
-def forward_loss(params: Transformer, batch: dict, cfg: ArchConfig,
+def forward_loss(params, batch: dict, cfg: ArchConfig,
                  env: ShardEnv) -> torch.Tensor:
     """Training loss for every family (mode ``train``, full teacher
     forcing): the token-mean cross-entropy plus z-loss of the logits
@@ -750,11 +786,12 @@ def forward_loss(params: Transformer, batch: dict, cfg: ArchConfig,
     every parameter. Each layer is rematerialized in the backward pass.
     An audio batch carries ``frames`` for the encoder and ``tokens`` for
     the decoder. On a mesh of one cell the parameters must be on its
-    device; training over a larger mesh is not ported."""
-    if env.cells > 1:
-        raise NotImplementedError(
-            "forward_loss: training over a mesh of more than one cell is "
-            "not ported (ROADMAP queue 1 item 5, the training slice)")
+    device; over a larger one they are placed for it (``place_params``),
+    every cell computes the loss of its block of the batch and the
+    result, on the mesh's first cell, is the whole batch's token mean
+    (``_loss_cells``)."""
+    if _on_mesh(env, cfg, "forward_loss"):
+        return _loss_cells(params, batch, cfg, env)
     _placed(params, env, "forward_loss")
     enc = (_whisper_encode(params, batch["frames"], cfg, env, remat=True)
            if cfg.family == "audio" else None)
@@ -763,6 +800,41 @@ def forward_loss(params: Transformer, batch: dict, cfg: ArchConfig,
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
     logits = unembed_logits(h, params.unembed, cfg.vocab_size)
     return softmax_xent(logits, _ids(params, batch["labels"]))
+
+
+def _loss_cells(params, batch: dict, cfg: ArchConfig,
+                env: ShardEnv) -> torch.Tensor:
+    """``forward_loss`` on the cells, under the caller's grad mode: each
+    cell runs the layers on its block of the residual stream (no remat),
+    relays out to the full sequence before the head, gathers the
+    vocab-split logits and takes ``softmax_xent`` of its batch block's
+    labels (split as ``env.full()``). The cells of one batch block hold
+    the same loss, so the first cell of each block counts, once; the
+    blocks' token means, summed in block order on the first cell and
+    divided by their number, are the batch's (the blocks are equal)."""
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    labels = batch["labels"]
+    labels = (labels if torch.is_tensor(labels)
+              else torch.from_numpy(np.asarray(labels)))
+    B, S = _batch_shape(inputs)
+
+    def body(p, b, e):
+        h = _stack_forward(p, cfg, _embed(p, b), "train", env=e)
+        h = rms_norm(e.to_full(h), p.final_norm, cfg.norm_eps)
+        lab = e.cell.take(labels, P(*e.full()[:2]))
+        return softmax_xent(_logits(p, h, cfg, e), _ids(p, lab))
+
+    out = _on_cells(params, inputs, cfg, env, body, "forward_loss")
+    entry = env.at(None, B, S).full()[0]
+    first: dict = {}
+    for index in np.ndindex(out.shape):
+        first.setdefault(block_index(env.mesh, index, entry), index)
+    dev = env.mesh.devices.flat[0]
+    total = None
+    for b in sorted(first):
+        x = out[first[b]].to(dev)
+        total = x if total is None else total + x
+    return total / len(first)
 
 
 @torch.no_grad()

@@ -11,8 +11,9 @@ Production behaviors implemented and tested:
 
 A checkpoint holds {"params", "opt"} in the reference's on-disk layout
 (``interop.tree_to_reference``: layer leaves stacked under a leading L,
-the keys of ``jax.tree_util.tree_flatten_with_path``), so either package
-resumes the other's. The step function is functional (it returns new
+the keys of ``jax.tree_util.tree_flatten_with_path``; placed leaves
+gathered), so either package resumes the other's, and a run on one mesh
+resumes on another. The step function is functional (it returns new
 parameters and state), so the loop holds its own and the caller's
 ``params`` are never changed.
 """
@@ -78,17 +79,23 @@ class TrainLoop:
 
     def try_resume(self, shardings=None) -> int:
         """Resume from the newest checkpoint in ``ckpt_dir`` (the port's or
-        the reference's) onto the device the parameters live on; returns
-        its step, 0 when there is none."""
+        the reference's, saved from any mesh or none) onto where the
+        loop's parameters and state live: their device, or, placed, their
+        mesh and layout; returns its step, 0 when there is none.
+        ``shardings``: {"params", "opt"} of ``NamedSharding``s in the
+        reference's stacked layout (``param_shardings`` and
+        ``opt_shardings`` of ``interop.reference_shapes``), which place
+        every leaf instead (elastic resume onto that mesh, whose
+        ``MeshParams`` the loop's parameters already are)."""
         latest = ckpt_lib.latest_step(self.cfg.ckpt_dir)
         if latest is None:
             return 0
         state = {"params": self.params, "opt": self.opt_state}
         tree, step = ckpt_lib.restore(self.cfg.ckpt_dir, latest,
-                                      interop.reference_shapes(state),
-                                      shardings)
-        out = interop.tree_from_reference(tree, state,
-                                          leaves(self.params)[0].device)
+                                      interop.reference_shapes(state))
+        first = leaves(self.params)[0]
+        out = interop.tree_from_reference(
+            tree, state, getattr(first, "device", None), shardings)
         self.params, self.opt_state = out["params"], out["opt"]
         return step
 
