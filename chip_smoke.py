@@ -14,9 +14,10 @@ mask at k=32) and also at ragged shapes (K1 in its three forms across its
 tile and query-group edges; K4 across its words and grid, at odd and even
 F, v_cap 32 to 1024 and with every clause inactive; K2, K3 and K5 at
 n % 32 != 0 and d % 4 != 0; K5 with no valid id, no pass bit and every
-pass bit), and then drives eleven paths, each with the launch counts
+pass bit), and then drives twelve paths, each with the launch counts
 cleared just before it and read just after (the mesh path in segments
-inside two others, the LM mesh path's retrieval inside the rag path):
+inside two others, the LM mesh path's retrieval inside the rag path,
+the family mesh path inside the lm_families and training paths):
 
 * the kernel/plain-version parity gate (``kernels.parity.parity_gate``),
   the path of K4 ``filter_eval`` and K5 ``fiber_expand``;
@@ -115,6 +116,23 @@ inside two others, the LM mesh path's retrieval inside the rag path):
   at d = 1,600 (first calls held to their plain versions, K2/K3 timed),
   with the ids of ``query_batch`` on ``embed_tokens``, every id passing
   its predicate, recall against exact filtered top-k;
+* the hybrid, ssm and audio families over a device mesh
+  (``family_mesh``, segments inside the lm_families and training paths
+  on their weights, the first layers as views), every cell on the card,
+  policy tp: hymba-1.5b's first 2 layers on 2 x 4 (its 25 / 5 heads
+  replicated, FFN and mamba channels split; 8 x 128 tokens, 16 new) and
+  first layer on 1 x 5 (heads and KV heads split; one prompt of 1,088
+  tokens wraps its 1,024-slot ring in prefill, 8 new), rwkv6-3b's first
+  2 on 2 x 4 (10 heads a cell; 8 x 64, 16 new) and whisper-small's
+  first 4 + 4 layers on 2 x 4 (4 x 1,500 frames, 16 decode steps; its
+  12 heads, 3 a cell): placing costs at most
+  1.1x the parameters' memory, the prefill is held to the meshless one
+  on the same weights in bf16 and fp32, every fp32 decode step to the
+  meshless step, ms a prefill, tokens/s and kernels a decode step beside
+  the meshless run's; then hymba's 64 retrieval prompts encoded whole on
+  2 x 4 through ``EncodedRetriever.retrieve_batch`` (K1-K3) for the
+  lm_families service, its fp32 ids overlapping the meshless
+  retriever's by at least 0.98;
 * training (``train_path``; it launches none of the five kernels):
   SmolLM-135M whole as ``launch/train.py --full`` trains it (batch 8 x
   128 tokens, lr 3e-3): step 0's loss and gradients on the card held to
@@ -2287,6 +2305,22 @@ def decode_vs_prefill(cfg, params, toks, env):
     return errs, sum(held) / len(held), kernel_count(prof), l_full, cache
 
 
+def first_layers(cfg, params, n):
+    """``cfg`` and ``params`` cut to their first ``n`` layers, and an
+    encoder's to its first ``n`` (views of the same tensors; None: as
+    they are)."""
+    import dataclasses
+    if n is None:
+        return cfg, params
+    tree = params.tree()
+    tree["layers"] = tree["layers"][:n]
+    cut = dict(n_layers=min(n, cfg.n_layers))
+    if cfg.n_enc_layers:
+        tree["enc_layers"] = tree["enc_layers"][:n]
+        cut["n_enc_layers"] = min(n, cfg.n_enc_layers)
+    return dataclasses.replace(cfg, **cut), params.with_tree(tree)
+
+
 def wrapped_ring(cfg, params, env) -> dict:
     """A hybrid's decode through its ring, in fp32, on its first
     RING_LAYERS layers (the same weights): a prompt as long as the window
@@ -2294,15 +2328,10 @@ def wrapped_ring(cfg, params, env) -> dict:
     ``decode_step``s, each writing at ``pos % W``, until every slot is
     overwritten; the last step's logits held to ``prefill`` over all 2W
     tokens within its fp32 FAM_TOL (2W: every slot overwritten once)."""
-    import dataclasses
-
     import numpy as np
 
     from repro_torch.models.transformer import decode_step, prefill
-    cfg = dataclasses.replace(cfg, n_layers=RING_LAYERS)
-    tree = params.tree()
-    tree["layers"] = tree["layers"][:RING_LAYERS]
-    params = params.with_tree(tree)
+    cfg, params = first_layers(cfg, params, RING_LAYERS)
     W = cfg.sliding_window
     toks = np.random.default_rng(2).integers(
         0, cfg.vocab_size, (1, 2 * W)).astype(np.int32)
@@ -2455,7 +2484,7 @@ def host_check(cfg, params, log) -> None:
                               f"logits {err:.4f} of the max")
 
 
-def hymba_retrieval(cfg, params, dev, card, log) -> None:
+def hymba_retrieval(cfg, params, dev, card, log, fmesh=None) -> None:
     """Hymba's embeddings through the fused filtered search at d = 1,600:
     HYMBA_DOCS documents encoded on the card, RAG_FIELDS fields, served
     at k=K (``serve_corpus``); ``EncodedRetriever.retrieve_batch`` on
@@ -2463,7 +2492,8 @@ def hymba_retrieval(cfg, params, dev, card, log) -> None:
     K1-K3 calls held to their plain versions and K2/K3 timed on them
     (``first_batch``), its ids equal to ``embed_tokens`` +
     ``query_batch``, passing their predicates, recall@K against exact
-    filtered top-k."""
+    filtered top-k; then, in ``fmesh``, the prompts encoded over a mesh
+    for the same service (``hymba_mesh_retrieval``)."""
     import numpy as np
     import torch
 
@@ -2506,16 +2536,20 @@ def hymba_retrieval(cfg, params, dev, card, log) -> None:
         recall_by_sel=[float(recs[thirds == i].mean()) for i in range(3)],
         walks=float(stats["walks"].mean()), syncs=stats["syncs"],
         kernel_times=times, card=card)
+    if fmesh is not None:
+        fmesh.run(lambda: hymba_mesh_retrieval(cfg, params, svc, prompts,
+                                               preds, ids, dev, card, log))
     del svc, retr
 
 
-def lm_families_path(dev, card, log) -> dict:
+def lm_families_path(dev, card, log, fmesh=None) -> dict:
     """The moe, hybrid and ssm LMs on the card (LM_FAMILIES; random
     weights from ``init_params`` with seed 0), one at a time, each freed
-    before the next: ``family_checks``, for hymba its retrieval
-    (``hymba_retrieval``), then ``host_check`` (dbrx at one layer,
-    FAM_HOST_LAYERS: its host copy of four would take 57 GB). Returns the
-    path's launch counts."""
+    before the next: ``family_checks``, in ``fmesh`` (a ``Segments``) the
+    arch's ``family_mesh`` cases on the same weights, for hymba its
+    retrieval (``hymba_retrieval``), then ``host_check`` (dbrx at one
+    layer, FAM_HOST_LAYERS: its host copy of four would take 57 GB).
+    Returns the path's launch counts."""
     import dataclasses
 
     import torch
@@ -2534,8 +2568,10 @@ def lm_families_path(dev, card, log) -> dict:
         torch.cuda.reset_peak_memory_stats()
         params = init_params(cfg, seed=0, device=dev)
         family_checks(cfg, params, dev, card, log)
+        if fmesh is not None and name in FMESH_ARCHS:
+            fmesh.run(lambda: family_mesh(cfg, params, dev, card, log))
         if cfg.family == "hybrid":
-            hymba_retrieval(cfg, params, dev, card, log)
+            hymba_retrieval(cfg, params, dev, card, log, fmesh)
         if name in FAM_HOST_LAYERS:
             del params
             torch.cuda.empty_cache()
@@ -2953,6 +2989,185 @@ def lm_mesh_path(dev, card, log) -> None:
     log("lm_mesh_models", s=time.time() - t)
 
 
+# -- the hybrid, ssm and audio families over a device mesh ----------------------
+
+# (data x model cells, layers, batch, prompt tokens, decode steps) of each
+# arch's cases, policy tp, every cell on the card, on the lm_families and
+# whisper paths' weights (the first layers as views; None: every layer).
+# Depth is cut to fit the segment's time (PERF.md section 4); the widths
+# are the published ones.
+FMESH_CASES = {
+    "hymba-1.5b": (((2, 4), 2, 8, 128, 16),    # 25 / 5 heads replicated
+                   ((1, 5), 1, 1, 1088, 8),    # split; W + 64 wraps the ring
+                   ((2, 4), 1, 1, 1088, 8)),   # B = 1: the ring's slots split
+    "rwkv6-3b": (((2, 4), 2, 8, 64, 16),),     # 40 heads, 10 a model cell
+    "whisper-small": (((2, 4), 4, 4, 32, 16),),   # 4 + 4 layers, 4 x 1,500
+}                                                # frames
+FMESH_ARCHS = ("hymba-1.5b", "rwkv6-3b")   # cased inside lm_families
+FMESH_RAG_SHAPE = (2, 4)   # hymba's retrieval prompts encoded on it, whole
+
+
+def fmesh_case(cfg, params, shape, B, S, new, dev, card, log) -> None:
+    """One family on a mesh of cells on the card, policy tp, against the
+    meshless pass on the same parameters: placing costs at most MESH_MEM
+    x their memory; ``prefill`` of B x S tokens (whisper: with
+    WHISPER_FRAMES frames) held to the meshless one in bf16 (MESH_TOL)
+    and, in fp32, within the tighter of MESH_TOL and the family's fp32
+    bound, as is each of ``new`` teacher-forced fp32 ``decode_step``s to
+    the meshless step; ms a prefill, tokens/s (``ServeEngine.generate``;
+    whisper's own greedy loop) and kernels a decode step, mesh beside
+    meshless. Where B does not divide the data axis, hymba's ring must be
+    placed with its slots split over the model axis (``cache_shardings``),
+    so the fp32 decode holds the flash-decode combine over a wrapped,
+    sequence-split ring."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.transformer import (ShardEnv, decode_step,
+                                                place_params, prefill)
+    from repro_torch.serve.engine import ServeEngine
+    t0 = time.time()
+    audio = cfg.family == "audio"
+    env, one = mesh_env(shape, "tp", dev), ShardEnv(None)
+    p_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    placed = place_params(params, env)
+    placed_over = (p_bytes + torch.cuda.memory_allocated() - m0) / p_bytes
+    check(placed_over <= MESH_MEM, f"family_mesh: {cfg.name} placed "
+                                   f"{placed_over:.3f} x its parameters")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (B, S + new)).astype(np.int32)
+    prompt = {"tokens": toks[:, :S]}
+    if audio:
+        prompt["frames"] = rng.standard_normal(
+            (B, WHISPER_FRAMES, cfg.d_model)).astype(np.float32)
+    runs = (("meshless", params, one), ("mesh", placed, env))
+    rec, caches = {}, {}
+    for name, p, e in runs:
+        prefill(p, prompt, cfg, e, cache_len=S + new)   # warm-up
+        torch.cuda.synchronize()
+        (rec[name], caches[name]), rec[name + "_prefill_ms"] = timed_ms(
+            lambda: prefill(p, prompt, cfg, e, cache_len=S + new))
+    err = logit_rel_err(rec["meshless"], rec["mesh"])
+    check(err <= MESH_TOL["bf16"], f"family_mesh: {cfg.name} bf16 mesh vs "
+                                   f"meshless prefill logits {err:.4f}")
+    ring = None
+    if cfg.family == "hybrid":
+        ring = list(caches["mesh"]["k"].spec)
+        ring_seq = len(ring) > 2 and ring[2] is not None
+        check(ring_seq == (B % shape[0] != 0), f"family_mesh: {cfg.name} "
+              f"ring on {shape} with B = {B} placed as {ring}")
+    step = {"tokens": toks[:, S:S + 1]}
+    kernels = {name: device_kernels(lambda: decode_step(
+        p, caches[name], step, cfg, e)) for name, p, e in runs}
+    del caches
+    gen = {}
+    for name, p, e in runs:
+        if audio:   # no ServeEngine for a frontend arch: greedy by hand
+            def greedy():
+                logits, cache = prefill(p, prompt, cfg, e,
+                                        cache_len=S + new)
+                out = []
+                for _ in range(new):
+                    nxt = logits[:, -1].argmax(-1, keepdim=True).to(
+                        torch.int32)
+                    out.append(nxt)
+                    logits, cache = decode_step(p, cache, {"tokens": nxt},
+                                                cfg, e)
+                return torch.cat(out, dim=1)
+        else:
+            eng = ServeEngine(cfg, e, p, device=None if e.mesh else dev)
+
+            def greedy():
+                return eng.generate(toks[:, :S], max_new=new)
+        gen[name], gen[name + "_ms"] = timed_ms(greedy)
+    bound32 = min(MESH_TOL["fp32"],
+                  FAM_TOL.get(cfg.name, WHISPER_TOL)["fp32"])
+    with Fp32():
+        outs = {}
+        for name, p, e in runs:
+            logits, cache = prefill(p, prompt, cfg, e, cache_len=S + new)
+            outs[name] = [logits]
+            for t in range(new):
+                logits, cache = decode_step(p, cache, {
+                    "tokens": toks[:, S + t:S + t + 1]}, cfg, e)
+                outs[name].append(logits)
+            del cache
+    errs32 = [logit_rel_err(a, b)
+              for a, b in zip(outs["meshless"], outs["mesh"])]
+    check(errs32[0] <= bound32, f"family_mesh: {cfg.name} fp32 mesh vs "
+                                f"meshless prefill logits {errs32[0]:.2e}")
+    check(max(errs32[1:]) <= bound32, f"family_mesh: {cfg.name} fp32 mesh "
+          f"vs meshless decode logits {max(errs32[1:]):.2e}")
+    log("family_mesh_case", arch=cfg.name, family=cfg.family,
+        mesh=list(shape), policy="tp", layers=cfg.n_layers,
+        enc_layers=cfg.n_enc_layers or None, d=cfg.d_model,
+        heads=[cfg.n_heads, cfg.n_kv_heads],
+        frames=WHISPER_FRAMES if audio else None,
+        params_gb=p_bytes / 1e9, placed_over_params=placed_over,
+        batch=B, prompt=S, new=new, ring_spec=ring,
+        prefill_ms=rec["mesh_prefill_ms"],
+        meshless_prefill_ms=rec["meshless_prefill_ms"],
+        prefill_rel_err=err, fp32_prefill_rel_err=errs32[0],
+        fp32_decode_rel_err=max(errs32[1:]), fp32_bound=bound32,
+        bf16_bound=MESH_TOL["bf16"],
+        tokens_per_s=B * new / (gen["mesh_ms"] / 1e3),
+        meshless_tokens_per_s=B * new / (gen["meshless_ms"] / 1e3),
+        tokens_equal_share=float((gen["mesh"] == gen["meshless"]).float()
+                                 .mean()),
+        decode_step_kernels=kernels["mesh"],
+        meshless_decode_step_kernels=kernels["meshless"],
+        max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        s=time.time() - t0, card=card)
+
+
+def family_mesh(cfg, params, dev, card, log) -> None:
+    """``fmesh_case`` for each of the arch's FMESH_CASES, on its first
+    layers."""
+    import torch
+    for shape, layers, B, S, new in FMESH_CASES[cfg.name]:
+        c, p = first_layers(cfg, params, layers)
+        fmesh_case(c, p, shape, B, S, new, dev, card, log)
+        torch.cuda.empty_cache()
+
+
+def hymba_mesh_retrieval(cfg, params, svc, prompts, preds, ids, dev, card,
+                         log) -> None:
+    """The hymba retrieval's prompts encoded by the whole model on a
+    FMESH_RAG_SHAPE mesh of cells on the card (its 25 / 5 heads
+    replicated, FFN and mamba channels split) for the same meshless
+    service, through ``EncodedRetriever.retrieve_batch`` (K1-K3): in
+    bf16 timed, its ids' overlap with the meshless run's (``ids``)
+    logged; in fp32 (both encoders), the ids overlapping the meshless
+    retriever's by at least RAG_MESH_OVERLAP (the meshless run's
+    launches are not this segment's)."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import ShardEnv
+    from repro_torch.serve.retrieval import EncodedRetriever
+    retr = EncodedRetriever(cfg, mesh_env(FMESH_RAG_SHAPE, "tp", dev),
+                            params, svc)
+    one = EncodedRetriever(cfg, ShardEnv(None), params, svc)
+    (got, stats), ms = timed_ms(lambda: retr.retrieve_batch(prompts, preds))
+    with Fp32():
+        got32, _ = retr.retrieve_batch(prompts, preds)
+        saved = dict(build.LAUNCHES)
+        want32, _ = one.retrieve_batch(prompts, preds)
+        build.LAUNCHES.clear()
+        build.LAUNCHES.update(saved)
+    share32 = overlap(want32, got32)
+    check(share32 >= RAG_MESH_OVERLAP, f"family_mesh: fp32 hymba "
+          f"mesh-encoded retrieve_batch ids overlap {share32:.4f}")
+    log("family_mesh_rag", arch=cfg.name, mesh=list(FMESH_RAG_SHAPE),
+        layers=cfg.n_layers, Q=len(ids), ms=ms,
+        overlap_bf16=overlap(ids, got), overlap_fp32=share32,
+        exact_fp32=float(np.mean([np.array_equal(a, b)
+                                  for a, b in zip(want32, got32)])),
+        walks=float(stats["walks"].mean()), card=card)
+
+
 # -- the training path ---------------------------------------------------------
 
 TRAIN_ARCH = "smollm-135m"
@@ -3297,8 +3512,9 @@ def whisper_serving(cfg, params, env, dev, card, log) -> None:
           f"prefill logits {err_host32:.2e} of the max")
 
 
-def whisper_path(dev, card, log) -> None:
-    """whisper-small whole (``whisper_serving``), then WHISPER_TRAIN_STEPS
+def whisper_path(dev, card, log, fmesh=None) -> None:
+    """whisper-small whole (``whisper_serving``; in ``fmesh``, its
+    ``family_mesh`` case on the same weights), then WHISPER_TRAIN_STEPS
     steps of ``TrainLoop`` on ``TokenPipeline(frontend="frame")`` batches
     of TRAIN_BATCH x TRAIN_SEQ frames (ms a step, peak memory, the loss
     descending by WHISPER_DESCENT)."""
@@ -3315,6 +3531,8 @@ def whisper_path(dev, card, log) -> None:
     torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, 0, dev)
     whisper_serving(cfg, params, env, dev, card, log)
+    if fmesh is not None:
+        fmesh.run(lambda: family_mesh(cfg, params, dev, card, log))
     step = make_train_step(cfg, env, AdamWConfig(
         peak_lr=TRAIN_LR, warmup_steps=max(WHISPER_TRAIN_STEPS // 10, 1),
         total_steps=WHISPER_TRAIN_STEPS))
@@ -3507,19 +3725,20 @@ def dbrx_step(dev, card, log) -> None:
           <= DBRX_TOL["mean"], "dbrx: bf16 vs fp32 mean token loss")
 
 
-def train_path(dev, card, log) -> dict:
+def train_path(dev, card, log, fmesh=None) -> dict:
     """Training on the card (random weights from ``init_params`` seed 0,
     one model at a time, each freed before the next):
-    ``smollm_training``, ``whisper_path``, ``family_step`` of hymba and
-    rwkv6, ``dbrx_step``. It launches none of K1-K5. Returns the path's
-    launch counts."""
+    ``smollm_training``, ``whisper_path`` (with whisper's ``family_mesh``
+    case in ``fmesh``), ``family_step`` of hymba and rwkv6,
+    ``dbrx_step``. It launches none of K1-K5. Returns the path's launch
+    counts."""
     import torch
 
     from repro_torch.kernels import build
     t_path = time.time()
     build.LAUNCHES.clear()
     parts = [("smollm", lambda: smollm_training(dev, card, log)),
-             ("whisper", lambda: whisper_path(dev, card, log))]
+             ("whisper", lambda: whisper_path(dev, card, log, fmesh))]
     parts += [(n, lambda n=n: family_step(n, dev, card, log))
               for n in FAMILY_STEPS]
     parts.append(("dbrx", lambda: dbrx_step(dev, card, log)))
@@ -4261,9 +4480,12 @@ def drive_paths(dev, card, log, report_path):
     lm_mesh.run(lambda: lm_mesh_path(dev, card, log))
     by_path["lm_mesh"] = lm_mesh.finish(SEARCH_KERNELS, log)
     torch.cuda.empty_cache()
-    by_path["lm_families"] = lm_families_path(dev, card, log)
+    family_mesh_seg = Segments("family_mesh")   # inside the next two paths
+    by_path["lm_families"] = lm_families_path(dev, card, log,
+                                              family_mesh_seg)
     torch.cuda.empty_cache()
-    by_path["train"] = train_path(dev, card, log)
+    by_path["train"] = train_path(dev, card, log, family_mesh_seg)
+    by_path["family_mesh"] = family_mesh_seg.finish(SEARCH_KERNELS, log)
     torch.cuda.empty_cache()
     train_mesh = Segments("train_mesh")
     train_mesh.run(lambda: train_mesh_path(dev, card, log))

@@ -12,10 +12,15 @@ stacked (leading L) tensors; ``prefill`` allocates its cache here.
 
 Over a mesh of more than one cell the cache is placed by
 ``cache_shardings``: each leaf ``Sharded``, its blocks views of one
-zeroed tensor where the cells share a device.
+zeroed tensor where the cells share a device. A recurrent state's block
+that several cells hold (a dim the model axis does not divide, the shift
+tails always) is a copy of its own on each: a decode step reads the old
+state and writes the new one in place, and cells sharing one block
+would read each other's writes.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
@@ -79,6 +84,24 @@ def init_cache(cfg: ArchConfig, spec: ShapeSpec, device=None,
             for name, (shape, dtype) in specs.items()}
     where = cache_shardings(cfg, env.mesh, like)
     home = staging_device(env.mesh)
-    return {"pos": 0, **{name: place(torch.zeros(x.shape, dtype=x.dtype,
-                                                 device=home), where[name])
-                         for name, x in like.items()}}
+    out = {"pos": 0}
+    for name, x in like.items():
+        leaf = place(torch.zeros(x.shape, dtype=x.dtype, device=home),
+                     where[name])
+        out[name] = leaf if name in KV_LEAVES else _own_blocks(leaf)
+    return out
+
+
+KV_LEAVES = ("k", "v", "ck", "cv")
+
+
+def _own_blocks(leaf):
+    """``leaf`` with every block that an earlier cell also holds
+    replaced by a copy (a ``Sharded``'s blocks, in place)."""
+    seen = set()
+    for index in np.ndindex(leaf.shards.shape):
+        x = leaf.shards[index]
+        if id(x) in seen:
+            leaf.shards[index] = x.clone()
+        seen.add(id(x))
+    return leaf

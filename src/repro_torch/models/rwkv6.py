@@ -11,6 +11,12 @@ r, k, v, w and the state are fp32 (the reference's ``hs`` casts), as is
 the per-head groupnorm; the projections run in the activations' dtype.
 The reference scans in rematted chunks of 256 steps, which changes no
 number; the port runs every step in one loop.
+
+In a cell of a device mesh (``cell``, its model axis ``axis``) the leaves
+are the cell's blocks as ``param_shardings`` places them: ``wr``, ``wk``,
+``wv``, ``wg`` and ``cm_k`` by column, ``wo``, ``cm_v`` and ``cm_r`` by
+row, where the width divides the axis; the rest whole. ``x`` is the
+cell's batch block, every position and all of d.
 """
 from __future__ import annotations
 
@@ -64,15 +70,42 @@ def _wkv_scan(r, k, v, w, u, s):
     return torch.stack(ys, dim=1), s
 
 
-def rwkv_time_mix(p, x: torch.Tensor, state, head_size: int):
+def own_heads(p, head_size: int, cell=None) -> bool:
+    """Whether a cell runs its own block of heads: its columns of ``wr``
+    (and ``wk``, ``wv``, ``wg``) are fewer than d and hold whole heads.
+    Its ``wkv`` is then that block of heads; else every head."""
+    d_loc = p.wr.shape[1]
+    return cell is not None and d_loc < p.wr.shape[0] \
+        and d_loc % head_size == 0
+
+
+def rwkv_time_mix(p, x: torch.Tensor, state, head_size: int, cell=None,
+                  axis: str = "model"):
     """x: (B, S, d). state = (shift last (B, d), wkv (B, H, N, N) fp32)
-    or None."""
+    or None.
+
+    In a cell whose block of ``wr``..``wg`` holds whole heads (d / n
+    columns, n cells on ``axis``) it runs those heads: the decay LoRA
+    whole (``w_a``, ``w_b`` replicated), then cut to the heads' columns,
+    as are ``u`` and ``ln_x``, and the per-head group norm stays local;
+    ``wkv`` is the heads' block. Where the columns cut heads apart (d / n
+    not a multiple of the head size) the cell all-gathers r, k, v and g
+    over ``axis`` ((n - 1)/n of 4·B·S·d activations) and runs every
+    head, its ``wkv`` whole. Either way ``wo``'s product is the cell's
+    partial over its rows, summed over ``axis`` (B·S·d from each of the
+    n - 1 others)."""
     B, S, d = x.shape
     H, N = d // head_size, head_size
     dt_ = x.dtype
+    d_loc = p.wr.shape[1]
+    split = cell is not None and d_loc < d
+    c0 = cell.block(axis) * d_loc if split else 0
+    gathered = split and not own_heads(p, N, cell)
+    cols = slice(0, d) if gathered or not split else slice(c0, c0 + d_loc)
+    Hc = (cols.stop - cols.start) // N
     if state is None:
         last = torch.zeros((B, d), dtype=dt_, device=x.device)
-        s0 = torch.zeros((B, H, N, N), device=x.device)
+        s0 = torch.zeros((B, Hc, N, N), device=x.device)
     else:
         last, s0 = state
     prev, new_last = _shift(x, last)
@@ -82,23 +115,39 @@ def rwkv_time_mix(p, x: torch.Tensor, state, head_size: int):
     k = xk @ p.wk.to(dt_)
     v = xv @ p.wv.to(dt_)
     g = xg @ p.wg.to(dt_)
+    if gathered:
+        r, k, v, g = (cell.all_gather(t, axis, -1) for t in (r, k, v, g))
     lora = torch.tanh(xw @ p.w_a.to(dt_)) @ p.w_b.to(dt_)
-    w = torch.exp(-torch.exp(p.w0 + lora.float()))
+    w = torch.exp(-torch.exp(p.w0[cols] + lora[..., cols].float()))
 
     def hs(t):
-        return t.float().reshape(B, S, H, N)
+        return t.float().reshape(B, S, Hc, N)
 
-    y, sF = _wkv_scan(hs(r), hs(k), hs(v), w.reshape(B, S, H, N), p.u, s0)
+    heads = slice(cols.start // N, cols.stop // N)
+    y, sF = _wkv_scan(hs(r), hs(k), hs(v), w.reshape(B, S, Hc, N),
+                      p.u[heads], s0)
     mean = y.mean(dim=-1, keepdim=True)
     var = y.var(dim=-1, keepdim=True, unbiased=False)
     y = (y - mean) * torch.rsqrt(var + GN_EPS)
-    y = y.reshape(B, S, d) * (1.0 + p.ln_x)
+    y = y.reshape(B, S, Hc * N) * (1.0 + p.ln_x[cols])
     out = y.to(dt_) * F.silu(g.float()).to(dt_)
-    return out @ p.wo.to(dt_), (new_last, sF)
+    if gathered:
+        out = out[..., c0:c0 + d_loc]
+    out = out @ p.wo.to(dt_)
+    return (cell.psum(out, axis) if split else out), (new_last, sF)
 
 
-def rwkv_channel_mix(p, x: torch.Tensor, state):
-    """state = the last token (B, d) or None."""
+def rwkv_channel_mix(p, x: torch.Tensor, state, cell=None,
+                     axis: str = "model", d_ff: int = 0):
+    """state = the last token (B, d) or None.
+
+    In a cell, ``cm_k``'s columns and ``cm_v``'s rows are its block of
+    the hidden width ``d_ff`` where they are split (``cm_v`` holds fewer
+    rows): the product's partial is summed over
+    ``axis`` (B·S·d from each of the n - 1 others). ``cm_r``'s rows are
+    its block of d where d splits: its partial over the cell's columns of
+    the shifted input is summed over ``axis`` (B·S·d) before the
+    sigmoid."""
     B, S, d = x.shape
     dt_ = x.dtype
     last = torch.zeros((B, d), dtype=dt_, device=x.device) \
@@ -109,5 +158,13 @@ def rwkv_channel_mix(p, x: torch.Tensor, state):
     xr = x + mu[1] * (prev - x)
     k = torch.square(F.relu((xk @ p.cm_k.to(dt_)).float())).to(dt_)
     kv = k @ p.cm_v.to(dt_)
-    r = torch.sigmoid((xr @ p.cm_r.to(dt_)).float()).to(dt_)
+    if cell is not None and p.cm_v.shape[0] < d_ff:
+        kv = cell.psum(kv, axis)
+    rows = p.cm_r.shape[0]
+    if cell is not None and rows < d:
+        c0 = cell.block(axis) * rows
+        r = cell.psum(xr[..., c0:c0 + rows] @ p.cm_r.to(dt_), axis)
+    else:
+        r = xr @ p.cm_r.to(dt_)
+    r = torch.sigmoid(r.float()).to(dt_)
     return r * kv, new_last

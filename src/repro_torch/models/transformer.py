@@ -20,21 +20,27 @@ autograd, each layer rematerialized in the backward pass
 without it. Every pass runs on the device the parameters live on.
 
 Over a device mesh (``ShardEnv(mesh, data_axes, model_axis, policy)``)
-the serving passes and ``forward_loss`` of the dense, vlm and moe
-families run on every cell
+the serving passes of every family, and ``forward_loss`` of the dense,
+vlm and moe families, run on every cell
 (``launch.placement.run_cells``): the parameters placed by
 ``param_shardings`` (``MeshParams``: each cell's module of its blocks,
 views where the cell is on their device), the batch split as the
 reference's ``act3`` lays out the residual stream, and each cell's pass
-the one-device pass on its local heads, KV heads, FFN width, experts and
-vocab, joined where the reference's constraints and shard_maps imply: a
-sum over ``model`` after each row-parallel product (``wo``, ``w_down``)
-where it is split, a gather of the vocab-split logits, the MoE's
-all_to_alls and psum (``models/moe.py``), the flash-decode combine where
-the cache's sequence is split, and the relayouts between the residual
-stream's layout and the full sequence's under "sp". A mesh of one cell
-runs the one-device pass on that cell's device, bit for bit; a hybrid,
-ssm or audio model on a larger mesh raises (ROADMAP queue 1 item 5).
+the one-device pass on its local heads, KV heads, FFN width, experts,
+mamba channels, rwkv6 heads and vocab, joined where the reference's
+constraints and shard_maps imply: a sum over ``model`` after each
+row-parallel product (``wo``, ``w_down``, ``out_proj``, ``cm_v``,
+``cm_r``) where it is split, the gathers mamba and rwkv6 need where their
+blocks do not line up (``models/{mamba,rwkv6}.py``), a gather of the
+vocab-split logits, the MoE's all_to_alls and psum (``models/moe.py``),
+the flash-decode combine where the cache's sequence is split (a hybrid
+ring's slots too), and the relayouts between the residual stream's
+layout and the full sequence's under "sp". Every state a layer leaves
+(K/V, the ring's slots, mamba's and rwkv6's states, whisper's cross
+K/V) is stored into its cell's block of the cache placed by
+``cache_shardings``. A mesh of one cell runs the one-device pass on
+that cell's device, bit for bit; ``forward_loss`` of a hybrid, ssm or
+audio model on a larger mesh raises (ROADMAP queue 1 item 5.2b).
 
 ``forward_loss`` over the cells is one autograd graph: each cell's
 module holds its own ``Parameter`` leaves (views of the placed blocks),
@@ -86,11 +92,12 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import (CDT, embed_lookup, init_dense,
                                        pad_vocab, rms_norm, rope,
                                        softmax_xent, swiglu, unembed_logits)
-from repro_torch.models.kvcache import init_cache
-from repro_torch.models.mamba import init_mamba, mamba_forward
+from repro_torch.models.kvcache import KV_LEAVES, init_cache
+from repro_torch.models.mamba import (dt_rank, init_mamba, mamba_forward,
+                                      own_channels)
 from repro_torch.models.moe import MoEDims, moe_cell, moe_ffn
-from repro_torch.models.rwkv6 import (init_rwkv_layer, rwkv_channel_mix,
-                                      rwkv_time_mix)
+from repro_torch.models.rwkv6 import (init_rwkv_layer, own_heads,
+                                      rwkv_channel_mix, rwkv_time_mix)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -423,7 +430,7 @@ def _init_layer(gen, cfg: ArchConfig, cross: bool = False) -> dict:
         p["cross"] = _init_attn(gen, cfg)
     if cfg.family == "hybrid":
         p["mamba"] = init_mamba(gen, d, cfg.ssm_expand * d, cfg.ssm_state,
-                                dt_rank=max(d // 16, 8))
+                                dt_rank=dt_rank(d))
         p["beta"] = torch.zeros(2, device=gen.device)
     p["ffn"] = _init_moe(gen, cfg) if cfg.is_moe else \
         _init_ffn(gen, d, cfg.d_ff)
@@ -576,28 +583,37 @@ def _block_forward(p: Tree, h, cfg: ArchConfig, window: int, positions,
     decode state: k/v, plus mamba's ssm/conv for hybrid, the cross K/V
     ck/cv where ``enc_out`` is given; rwkv6's wkv and shift tails for
     ssm). In a cell, ``h`` is its block of the residual stream
-    (``env.act()``); attention and the FFN take the full sequence."""
+    (``env.act()``); attention, mamba, rwkv6's mixes, the cross-attention
+    and the FFN take the full sequence (``enc_out`` too), each on the
+    cell's heads, channels or hidden block, and the states returned are
+    the cell's blocks of them."""
     eps = cfg.norm_eps
+    cell, ax = env.cell, env.model_axis
     if cfg.family == "ssm":
-        y, (shift_tm, wkv) = rwkv_time_mix(p, rms_norm(h, p.ln1, eps), None,
-                                           cfg.rwkv_head_size)
-        h = h + y
-        y, shift_cm = rwkv_channel_mix(p, rms_norm(h, p.ln2, eps), None)
-        return h + y, {"wkv": wkv, "shift_tm": shift_tm,
-                       "shift_cm": shift_cm}
+        y, (shift_tm, wkv) = rwkv_time_mix(
+            p, env.to_full(rms_norm(h, p.ln1, eps)), None,
+            cfg.rwkv_head_size, cell, ax)
+        h = h + env.to_act(y)
+        y, shift_cm = rwkv_channel_mix(
+            p, env.to_full(rms_norm(h, p.ln2, eps)), None, cell, ax,
+            cfg.d_ff)
+        return h + env.to_act(y), {"wkv": wkv, "shift_tm": shift_tm,
+                                   "shift_cm": shift_cm}
+    hybrid = cfg.family == "hybrid"
     hn = env.to_full(rms_norm(h, p.ln1, eps))
     ao, (k, v) = _attend_full(p.attn, hn, cfg, window, positions, causal,
                               env=env)
     state = {"k": k, "v": v}
-    if cfg.family == "hybrid":
-        mo, (state["ssm"], state["conv"]) = mamba_forward(p.mamba, hn)
+    if hybrid:
+        mo, (state["ssm"], state["conv"]) = mamba_forward(
+            p.mamba, hn, None, cell, ax)
         ao = _mix_heads(p.beta, ao, mo)
     h = h + env.to_act(ao)
     if enc_out is not None:  # whisper decoder: cross-attend to the encoder
         co, (state["ck"], state["cv"]) = _attend_full(
-            p.cross, rms_norm(h, p.ln_cross, eps), cfg, 0, positions,
-            kv=enc_out)
-        h = h + co
+            p.cross, env.to_full(rms_norm(h, p.ln_cross, eps)), cfg, 0,
+            positions, kv=enc_out, env=env)
+        h = h + env.to_act(co)
     y = _ffn_apply(p.ffn, env.to_full(rms_norm(h, p.ln2, eps)), cfg, mode,
                    env)
     return h + env.to_act(y), state
@@ -615,15 +631,19 @@ def _store(cache: dict, li: int, state: dict,
     """Layer ``li``'s prefill state into the cache. K/V of positions
     0..S-1 go to slot ``p % R`` of the cache's R slots, the last
     ``min(S, R)`` of them kept (R >= S but for a hybrid ring shorter than
-    the prompt); the recurrent states are copied whole. In a cell, K/V
-    are relaid out as the cache is placed (``cache_shardings``) and each
-    cell writes the slots it holds."""
+    the prompt); the recurrent states are copied whole. In a cell, every
+    leaf is relaid out as the cache is placed (``cache_shardings``) and
+    each cell writes its block (of K/V, the slots it holds)."""
     if env.cell is not None:
-        for name in ("k", "v"):
-            _store_cell(cache[name], li, state[name], env)
+        for name, x in state.items():
+            now = _state_now(name, x, cache[name], env)
+            if name in KV_LEAVES:
+                _store_kv_cell(cache[name], li, x, now, env)
+            else:
+                _write_state(cache, li, name, x, now, env)
         return
     for name, x in state.items():
-        if name not in ("k", "v"):
+        if name not in KV_LEAVES:
             cache[name][li] = x
             continue
         S, R = x.shape[1], cache[name].shape[2]
@@ -633,26 +653,79 @@ def _store(cache: dict, li: int, state: dict,
 
 
 def _cache_layout(leaf: Sharded) -> tuple:
-    """A placed K/V leaf's per-layer layout: (batch, seq, KV heads, hd)
-    entries as tuples of axes."""
-    return full_spec(leaf.spec, 5)[1:]
+    """A placed cache leaf's per-layer layout: one entry a dim after L
+    (for K/V: batch, seq, KV heads, hd), each a tuple of axes."""
+    return full_spec(leaf.spec, len(leaf.shape))[1:]
 
 
-def _store_cell(leaf: Sharded, li: int, x: torch.Tensor,
-                env: ShardEnv) -> None:
-    """A cell's K or V (its batch block and KV heads, every position) into
-    its block of the placed cache: relaid out to the cache's batch and
-    heads, then the positions of the slots it holds (a dense cache:
-    position p in slot p)."""
+def _state_now(name: str, x: torch.Tensor, leaf: Sharded,
+               env: ShardEnv) -> tuple:
+    """How a cell's block ``x`` of layer state ``name`` is laid out in its
+    pass: the batch as the full sequence's (``env.full()``), and the KV
+    heads, channels or heads over the model axis where ``x`` holds fewer
+    than the leaf (a cell's block of them)."""
+    ax = env.model_axis
+
+    def split(dx, dl):
+        return ax if x.shape[dx] < leaf.shape[dl] else None
+
+    b = env.full()[0]
+    if name in KV_LEAVES:           # (B, S, KV, hd)
+        return (b, None, split(2, 3), None)
+    if name in ("ssm", "wkv"):      # (B, d_in, N) / (B, H, N, N)
+        return (b, split(1, 2), None, None)[:x.ndim]
+    if name == "conv":              # (B, CONV_K - 1, d_in)
+        return (b, None, split(2, 3))
+    return (b, None)                # shift tails (B, d)
+
+
+def _store_kv_cell(leaf: Sharded, li: int, x: torch.Tensor, now: tuple,
+                   env: ShardEnv) -> None:
+    """A cell's K or V (or cross K/V; its batch block and heads, laid out
+    as ``now``, every position) into its block of the placed cache:
+    relaid out to the cache's batch and heads, then the positions of the
+    slots the cell holds (position p in slot ``p % R``, the last
+    ``min(S, R)`` positions kept). Those positions fill at most two runs
+    of slots, from ``p0 % R`` to the end and from slot 0 on; each is
+    cut to the cell's slots and copied as a slice, so the host never
+    waits for the device."""
     b, s, kv, _ = _cache_layout(leaf)
-    kv_now = env.model_axis if x.shape[2] < leaf.shape[3] else None
-    x = env.cell.relayout(x, (env.full()[0], None, kv_now),
-                          (b, None, kv, None))
     dst = leaf.local(env.cell)[li]
+    x = env.cell.relayout(x, now, (b, None, kv, None))
+    S, R = x.shape[1], leaf.shape[2]
     lo = env.cell.block(s) * dst.shape[1]
-    n = min(x.shape[1], lo + dst.shape[1]) - lo
-    if n > 0:
-        dst[:, :n] = x[:, lo:lo + n]
+    hi = lo + dst.shape[1]
+    p0 = S - min(S, R)
+    first = min(S - p0, R - p0 % R)
+    for pos, slot, n in ((p0, p0 % R, first), (p0 + first, 0, S - p0 - first)):
+        a, z = max(slot, lo), min(slot + n, hi)
+        if a < z:
+            dst[:, a - lo:z - lo] = x[:, pos + a - slot:pos + z - slot]
+
+
+def _read_state(cache: dict, li: int, name: str, now: tuple,
+                env: ShardEnv) -> torch.Tensor:
+    """Layer ``li``'s state ``name`` as a decode step takes it: the
+    cache's own tensor without a cell; in a cell, a copy of its block
+    relaid out to ``now`` (a copy, so no cell reads a block another has
+    overwritten)."""
+    leaf = cache[name]
+    if env.cell is None:
+        return leaf[li]
+    return env.cell.relayout(leaf.local(env.cell)[li].clone(),
+                             _cache_layout(leaf), now)
+
+
+def _write_state(cache: dict, li: int, name: str, x: torch.Tensor,
+                 now: tuple, env: ShardEnv) -> None:
+    """``_read_state``'s inverse: ``x`` (laid out as ``now`` in a cell)
+    into layer ``li``'s block of the cache."""
+    leaf = cache[name]
+    if env.cell is None:
+        leaf[li] = x
+        return
+    leaf.local(env.cell)[li].copy_(env.cell.relayout(x, now,
+                                                     _cache_layout(leaf)))
 
 
 def _stack_forward(params: Transformer, cfg: ArchConfig, h,
@@ -700,14 +773,18 @@ def _embed(params: Transformer, batch: dict) -> torch.Tensor:
 
 
 def _whisper_encode(params: Transformer, frames, cfg: ArchConfig,
-                    env: ShardEnv | None = None,
+                    env: ShardEnv = ONE_DEVICE,
                     remat: bool = False) -> torch.Tensor:
     """The encoder over ``frames`` (B, S_enc, d), the frame frontend's
     precomputed embeddings: non-causal blocks with RoPE, then its final
-    norm."""
+    norm. In a cell (``env`` over the encoder's batch and S_enc) the
+    frames are its block of them laid out as the residual stream, the
+    blocks run on its heads and FFN block, and the output is its batch
+    block of the full sequence, what the cross-attention reads."""
     h = torch.as_tensor(frames, device=params.device).to(CDT)
-    h = _stack_forward(params, cfg, h, "train", encoder=True, remat=remat)
-    return rms_norm(h, params.enc_final_norm, cfg.norm_eps)
+    h = _stack_forward(params, cfg, h, "train", encoder=True, remat=remat,
+                       env=env)
+    return env.to_full(rms_norm(h, params.enc_final_norm, cfg.norm_eps))
 
 
 # ---------------------------------------------------------------------------
@@ -716,14 +793,15 @@ def _whisper_encode(params: Transformer, frames, cfg: ArchConfig,
 
 def _on_mesh(env: ShardEnv, cfg: ArchConfig, what: str) -> bool:
     """True where ``what`` runs on the cells of a mesh of more than one;
-    a hybrid, ssm or audio model raises there."""
+    ``forward_loss`` of a hybrid, ssm or audio model raises there."""
     if env.cells == 1:
         return False
-    if cfg.family in ("hybrid", "ssm", "audio"):
+    if what == "forward_loss" and cfg.family in ("hybrid", "ssm", "audio"):
         raise NotImplementedError(
-            f"{what}: the {cfg.family} family on a mesh of more than one "
-            f"cell is not ported (ROADMAP queue 1 item 5: the dense, vlm "
-            f"and moe families serve and train over a mesh)")
+            f"{what}: training the {cfg.family} family on a mesh of more "
+            f"than one cell is not ported (ROADMAP queue 1 item 5.2b; every "
+            f"family serves over a mesh, and the dense, vlm and moe "
+            f"families train over one)")
     return True
 
 
@@ -735,18 +813,18 @@ def _batch_shape(batch: dict) -> tuple[int, int]:
 def _on_cells(params, batch: dict, cfg: ArchConfig, env: ShardEnv, body,
               what: str):
     """``body(local params, local batch, cell env)`` on every cell, each
-    given its block of ``batch`` as the residual stream is laid out
-    (``env.act()``). Returns the cells' results (an object array)."""
+    given its block of every leaf of ``batch`` as the residual stream of
+    the leaf's length is laid out (``env.act()``; whisper's frames by
+    their own length). Returns the cells' results (an object array)."""
     placed = _placed(params, env, what)
     B, S = _batch_shape(batch)
     whole = {k: v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
              for k, v in batch.items()}
 
     def cell_fn(cell):
-        cenv = env.at(cell, B, S)
-        act = cenv.act()
-        local = {k: cell.take(v, P(*act[:v.ndim])) for k, v in whole.items()}
-        return body(placed.local(cell), local, cenv)
+        local = {k: cell.take(v, P(*env.at(cell, B, v.shape[1]).act()[
+            :v.ndim])) for k, v in whole.items()}
+        return body(placed.local(cell), local, env.at(cell, B, S))
 
     return run_cells(env.mesh, cell_fn)
 
@@ -850,8 +928,8 @@ def prefill(params, batch: dict, cfg: ArchConfig, env: ShardEnv,
     layer's cross K/V over its output (``ck``, ``cv``).
 
     On a mesh, ``params`` are placed for it (``place_params``); over more
-    than one cell the logits come back on the mesh's first cell and the
-    cache's K/V are ``Sharded`` by ``cache_shardings``."""
+    than one cell the logits come back on the mesh's first cell and every
+    leaf of the cache but ``pos`` is ``Sharded`` by ``cache_shardings``."""
     if _on_mesh(env, cfg, "prefill"):
         return _prefill_cells(params, batch, cfg, env, cache_len)
     params = _placed(params, env, "prefill")
@@ -876,16 +954,28 @@ def prefill(params, batch: dict, cfg: ArchConfig, env: ShardEnv,
 
 def _prefill_cells(params, batch, cfg: ArchConfig, env: ShardEnv,
                    cache_len: int | None):
+    """``prefill`` on the cells: an audio batch's encoder first (each
+    cell on its block of the frames), then the decoder, each layer's
+    state stored into the cells' blocks of the placed cache."""
     B, S = _batch_shape(batch)
-    C = S if cache_len is None else cache_len
+    audio = cfg.family == "audio"
+    C = cache_len if cache_len is not None else \
+        cfg.max_decode_len if audio else S
     if C < S:
         raise ValueError(f"prefill: cache_len {C} is shorter than the "
                          f"prompt ({S})")
-    cache = {**init_cache(cfg, ShapeSpec("prefill", C, B, "prefill"),
-                          env=env), "pos": S}
+    if audio:
+        S_enc = int(np.shape(batch["frames"])[1])
+        spec, dec_len = ShapeSpec("prefill", S_enc, B, "prefill"), C
+    else:
+        spec, dec_len = ShapeSpec("prefill", C, B, "prefill"), None
+    cache = {**init_cache(cfg, spec, dec_len=dec_len, env=env), "pos": S}
 
     def body(p, b, e):
-        h = _stack_forward(p, cfg, _embed(p, b), cache=cache, env=e)
+        enc = (_whisper_encode(p, b["frames"], cfg, e.at(e.cell, B, S_enc))
+               if audio else None)
+        h = _stack_forward(p, cfg, _embed(p, b), cache=cache, enc_out=enc,
+                           env=e)
         h = rms_norm(e.to_full(h)[:, -1:], p.final_norm, cfg.norm_eps)
         return _logits(p, h, cfg, e)
 
@@ -939,28 +1029,37 @@ def decode_step(params, cache: dict, batch: dict, cfg: ArchConfig,
     return logits, {**cache, "pos": pos + 1}
 
 
-def _decode_attend_cell(q, k, v, cfg: ArchConfig, cache: dict, li: int,
-                        pos: int, window: int, env: ShardEnv):
-    """A cell's decode attention over its block of the placed cache: the
-    new token's K/V relaid out as the cache is and written where the cell
-    holds slot ``pos``; the queries relaid out to the cache's batch (and
-    KV heads where they are split) and attended there, or, where the
+def _decode_attend_cell(q, new, cfg: ArchConfig, cache: dict, li: int,
+                        pos: int, window: int, env: ShardEnv,
+                        names: tuple = ("k", "v")):
+    """A cell's decode attention over its block of the placed cache
+    ``names`` (self-attention's K/V, or whisper's cross K/V): the new
+    token's K/V (``new``; None for the cross K/V, which stay as prefill
+    left them) relaid out as the cache is and written where the cell
+    holds slot ``pos % R``; the queries relaid out to the cache's batch
+    (and KV heads where they are split) and attended there, or, where the
     cache's sequence is split, every head attended over the cell's slots
     and combined over the sequence's axis (``flash_decode_partial``).
-    Returns the output laid out as ``q``."""
+    The valid slots are the first ``min(pos + 1, R)`` (a ring's order
+    does not matter: RoPE is in K), all R for the cross K/V. Returns the
+    output laid out as ``q``."""
     cell = env.cell
     ax = env.model_axis
-    b, s, kv, _ = _cache_layout(cache["k"])
+    kl, vl = cache[names[0]], cache[names[1]]
+    b, s, kv, _ = _cache_layout(kl)
     b_now = env.full()[0]
-    kv_now = ax if k.shape[2] < cfg.n_kv_heads else None
     h_now = ax if q.shape[2] < cfg.n_heads else None
-    kc, vc = cache["k"].local(cell)[li], cache["v"].local(cell)[li]
+    kc, vc = kl.local(cell)[li], vl.local(cell)[li]
+    R = kl.shape[2]
     lo = cell.block(s) * kc.shape[1]
-    for new, dst in ((k, kc), (v, vc)):
-        new = cell.relayout(new, (b_now, None, kv_now), (b, None, kv, None))
-        if lo <= pos < lo + dst.shape[1]:
-            dst[:, pos - lo] = new[:, 0]
-    clen = min(pos + 1, cache["k"].shape[2])
+    clen = R
+    if new is not None:
+        clen = min(pos + 1, R)
+        kv_now = ax if new[0].shape[2] < cfg.n_kv_heads else None
+        for x, dst in zip(new, (kc, vc)):
+            x = cell.relayout(x, (b_now, None, kv_now), (b, None, kv, None))
+            if lo <= pos % R < lo + dst.shape[1]:
+                dst[:, pos % R - lo] = x[:, 0]
     q_now = (b_now, None, h_now, None)
     if s:   # the sequence split over the cells: flash decode
         q_all = cell.relayout(q, q_now, (b, None, None, None))
@@ -975,23 +1074,47 @@ def _decode_attend_cell(q, k, v, cfg: ArchConfig, cache: dict, li: int,
     return cell.relayout(o, (b, None, h_att, None), q_now)
 
 
+def _decode_ssm(p: Tree, h, cfg: ArchConfig, cache: dict, li: int,
+                env: ShardEnv):
+    """rwkv6's single-token block: the time and channel mixes on the
+    layer's states (in a cell, its copies of its blocks: ``wkv`` on its
+    heads where its columns hold whole heads, the shift tails whole)."""
+    eps = cfg.norm_eps
+    cell, ax = env.cell, env.model_axis
+    b = env.full()[0] if cell is not None else None
+    heads = ax if own_heads(p, cfg.rwkv_head_size, cell) else None
+    now = {"shift_tm": (b, None), "shift_cm": (b, None),
+           "wkv": (b, heads, None, None)}
+    state = (_read_state(cache, li, "shift_tm", now["shift_tm"], env),
+             _read_state(cache, li, "wkv", now["wkv"], env))
+    y, (shift_tm, wkv) = rwkv_time_mix(p, rms_norm(h, p.ln1, eps), state,
+                                       cfg.rwkv_head_size, cell, ax)
+    h = h + y
+    y, shift_cm = rwkv_channel_mix(
+        p, rms_norm(h, p.ln2, eps),
+        _read_state(cache, li, "shift_cm", now["shift_cm"], env), cell, ax,
+        cfg.d_ff)
+    for name, x in (("shift_tm", shift_tm), ("wkv", wkv),
+                    ("shift_cm", shift_cm)):
+        _write_state(cache, li, name, x, now[name], env)
+    return h + y
+
+
 def _decode_block(p: Tree, h, cfg: ArchConfig, window: int, pos: int,
                   posv, cache: dict, li: int, env: ShardEnv = ONE_DEVICE):
     """Single-token block forward; updates layer ``li``'s slices of the
     cache. K/V go to slot ``pos % R`` (R >= pos + 1 but for a full ring,
     which holds exactly the window, so it attends every slot). An audio
     layer then cross-attends every position of the cached encoder K/V.
-    In a cell the heads are its own, and where ``wo`` is split the
-    output is the sum of the cells' products."""
+    In a cell the heads, channels and hidden block are its own, its
+    states its blocks of the placed cache, and where ``wo`` (or
+    ``out_proj``, ``w_down``) is split the output is the sum of the
+    cells' products."""
     eps = cfg.norm_eps
     if cfg.family == "ssm":
-        y, (cache["shift_tm"][li], cache["wkv"][li]) = rwkv_time_mix(
-            p, rms_norm(h, p.ln1, eps),
-            (cache["shift_tm"][li], cache["wkv"][li]), cfg.rwkv_head_size)
-        h = h + y
-        y, cache["shift_cm"][li] = rwkv_channel_mix(
-            p, rms_norm(h, p.ln2, eps), cache["shift_cm"][li])
-        return h + y
+        return _decode_ssm(p, h, cfg, cache, li, env)
+    hybrid = cfg.family == "hybrid"
+    cell, ax = env.cell, env.model_axis
     hn = rms_norm(h, p.ln1, eps)
     B, hd = hn.shape[0], cfg.hd
     H, KV = p.attn.wq.shape[1] // hd, p.attn.wk.shape[1] // hd
@@ -1000,30 +1123,42 @@ def _decode_block(p: Tree, h, cfg: ArchConfig, window: int, pos: int,
     k = rope(_proj(hn, p.attn.wk).reshape(B, 1, KV, hd), posv,
              cfg.rope_theta)
     v = _proj(hn, p.attn.wv).reshape(B, 1, KV, hd)
-    if env.cell is None:
+    win = 0 if hybrid else window
+    if cell is None:
         kc, vc = cache["k"][li], cache["v"][li]
         R = kc.shape[1]
         kc[:, pos % R] = k[:, 0]
         vc[:, pos % R] = v[:, 0]
-        ao = attn_lib.decode_attention(
-            q, kc, vc, min(pos + 1, R),
-            window=0 if cfg.family == "hybrid" else window)
+        ao = attn_lib.decode_attention(q, kc, vc, min(pos + 1, R),
+                                       window=win)
     else:
-        ao = _decode_attend_cell(q, k, v, cfg, cache, li, pos, window, env)
+        ao = _decode_attend_cell(q, (k, v), cfg, cache, li, pos, win, env)
+    split = H < cfg.n_heads   # wo's rows: the output is a partial
     ao = _proj(ao.reshape(B, 1, H * hd), p.attn.wo)
-    if H < cfg.n_heads:
-        ao = env.sum_model(ao)
-    if cfg.family == "hybrid":
-        mo, (cache["ssm"][li], cache["conv"][li]) = mamba_forward(
-            p.mamba, hn, (cache["ssm"][li], cache["conv"][li]))
+    ao = env.sum_model(ao) if split else ao
+    if hybrid:
+        ch = ax if own_channels(p.mamba, cell) else None
+        b = env.full()[0] if cell is not None else None
+        now = {"ssm": (b, ch, None), "conv": (b, None, ch)}
+        state = tuple(_read_state(cache, li, n, now[n], env)
+                      for n in ("ssm", "conv"))
+        mo, new = mamba_forward(p.mamba, hn, state, cell, ax)
+        for name, x in zip(("ssm", "conv"), new):
+            _write_state(cache, li, name, x, now[name], env)
         ao = _mix_heads(p.beta, ao, mo)
     h = h + ao
     if cfg.family == "audio":
-        qc = _proj(rms_norm(h, p.ln_cross, eps), p.cross.wq)
-        ck = cache["ck"][li]
-        co = attn_lib.decode_attention(qc.reshape(B, 1, H, hd), ck,
-                                       cache["cv"][li], ck.shape[1])
-        h = h + _proj(co.reshape(B, 1, H * hd), p.cross.wo)
+        qc = _proj(rms_norm(h, p.ln_cross, eps),
+                   p.cross.wq).reshape(B, 1, H, hd)
+        if cell is None:
+            ck = cache["ck"][li]
+            co = attn_lib.decode_attention(qc, ck, cache["cv"][li],
+                                           ck.shape[1])
+        else:
+            co = _decode_attend_cell(qc, None, cfg, cache, li, pos, 0, env,
+                                     ("ck", "cv"))
+        co = _proj(co.reshape(B, 1, H * hd), p.cross.wo)
+        h = h + (env.sum_model(co) if split else co)
     return h + _ffn_apply(p.ffn, rms_norm(h, p.ln2, eps), cfg, "decode",
                           env)
 

@@ -17,8 +17,8 @@ class ServeEngine:
     None) the parameters are placed once by ``param_shardings`` (views,
     no second copy, where the cells share their device; on a mesh of one
     cell, on its device), every pass runs on the cells, and the tokens
-    are sampled on the mesh's first cell (the engine's ``device``); a
-    larger mesh serves the dense, vlm and moe families."""
+    are sampled on the mesh's first cell (the engine's ``device``), for
+    every family it serves."""
 
     def __init__(self, cfg: ArchConfig, env: ShardEnv, params: Transformer,
                  device=None):

@@ -781,23 +781,28 @@ def test_passes_refuse_parameters_not_placed_for_the_mesh(what):
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-3b",
                                   "whisper-small"])
 def test_unported_families_raise_on_a_larger_mesh(arch):
-    """The hybrid, ssm and audio families over a mesh of more than one
-    cell raise, naming the ROADMAP item, in their serving passes and in
-    ``forward_loss`` (training over a mesh is ported for the dense, vlm
-    and moe families: ``tests/test_torch_train_mesh.py``)."""
+    """The hybrid, ssm and audio families serve over a mesh of more than
+    one cell (``prefill``, ``decode_step`` and ``encode`` run: held to
+    the reference in ``tests/test_torch_family_mesh.py``), and their
+    ``forward_loss`` there raises, naming the ROADMAP item of their
+    training over a mesh (5.2b)."""
     cfg = configs.reduced_config(arch)
     port = tf.init_params(cfg, device="cpu")
     env = tf.ShardEnv(cpu_mesh((2, 4)))
+    placed = tf.place_params(port, env)
     batch = _one_cell_batch(cfg)
-    labels = np.zeros(np.shape(batch.get("tokens", batch.get(
-        "embeds")))[:2], np.int32)
-    for fn in (lambda: tf.prefill(port, batch, cfg, env),
-               lambda: tf.encode(port, batch, cfg, env),
-               lambda: tf.decode_step(port, {"pos": 1}, batch, cfg, env),
-               lambda: tf.forward_loss(port, {**batch, "labels": labels},
-                                       cfg, env)):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            fn()
+    logits, cache = tf.prefill(placed, batch, cfg, env, cache_len=9)
+    assert logits.shape[:2] == (2, 1) and torch.isfinite(
+        logits[logits > -1e29]).all()
+    logits, cache = tf.decode_step(placed, cache,
+                                   {"tokens": batch["tokens"][:, :1]}, cfg,
+                                   env)
+    assert cache["pos"] == 9 and logits.shape[:2] == (2, 1)
+    emb = tf.encode(placed, {"tokens": batch["tokens"]}, cfg, env)
+    assert emb.shape == (2, cfg.d_model)
+    labels = np.zeros(np.shape(batch["tokens"]), np.int32)
+    with pytest.raises(NotImplementedError, match="item 5.2b"):
+        tf.forward_loss(placed, {**batch, "labels": labels}, cfg, env)
 
 
 def test_shard_env_helpers_match_reference():
@@ -898,13 +903,15 @@ def _stacked(port):
                             interop.tree_to_reference(port))
 
 
-def test_restore_reshards_across_meshes(tmp_path):
+@pytest.mark.parametrize("arch", ["dbrx-132b", "hymba-1.5b", "rwkv6-3b"])
+def test_restore_reshards_across_meshes(tmp_path, arch):
     """A checkpoint of parameters placed on a 2 x 4 mesh (the reference's
     stacked layout) restores onto 1 x 8 and 4 x 2 by ``param_shardings``
     there: every leaf gathered equal to the saved one, every cell's block
     equal to placing it directly; ``restore_latest`` passes the
-    shardings through."""
-    cfg = pass_cfg("dbrx-132b")
+    shardings through (a MoE, the hybrid's mamba leaves, rwkv6's flat
+    leaves)."""
+    cfg = pass_cfg(arch)
     port = tf.init_params(cfg, seed=5, device="cpu")
     tree = _stacked(port)
     src = pl.place_tree(tree, sh.param_shardings(cfg, cpu_mesh((2, 4)),
