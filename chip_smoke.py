@@ -14,10 +14,11 @@ mask at k=32) and also at ragged shapes (K1 in its three forms across its
 tile and query-group edges; K4 across its words and grid, at odd and even
 F, v_cap 32 to 1024 and with every clause inactive; K2, K3 and K5 at
 n % 32 != 0 and d % 4 != 0; K5 with no valid id, no pass bit and every
-pass bit), and then drives twelve paths, each with the launch counts
+pass bit), and then drives thirteen paths, each with the launch counts
 cleared just before it and read just after (the mesh path in segments
 inside two others, the LM mesh path's retrieval inside the rag path,
-the family mesh path inside the lm_families and training paths):
+the family mesh path inside the lm_families and training paths, the
+family training mesh path inside the training path):
 
 * the kernel/plain-version parity gate (``kernels.parity.parity_gate``),
   the path of K4 ``filter_eval`` and K5 ``fiber_expand``;
@@ -148,6 +149,17 @@ the family mesh path inside the lm_families and training paths):
   host's; dbrx-132b at full width and 1 layer, the loss and gradients
   through the MoE's capacity path (finite, none zero) and its bf16
   token losses held to fp32 on the tokens whose experts agree;
+* the hybrid, ssm and audio families trained over a device mesh
+  (``family_train_mesh``, segments inside the training path on its
+  weights; it launches none of the five kernels), every cell on the
+  card, 2 x 4, tp, fp32: hymba-1.5b and rwkv6-3b at full width and 2
+  layers, whisper-small's first 4 + 4 layers (8 x 64 tokens; whisper's
+  decoder 8 x 64 over 256 frames): the step-1 loss and every gradient
+  leaf over the mesh held to the meshless ones (TMESH_TOL; rwkv6's
+  leaves, which its group norm leaves ill-conditioned, to the fixed
+  FTMESH_RWKV_LEAF, and to TMESH_TOL with that norm's eps raised), one
+  ``make_train_step`` each way, the mesh's with ZeRO-1 (ms and kernels a
+  step, the mesh gradients' peak memory);
 * training over a device mesh (``train_mesh``, a segment of its own
   with its own counts; it launches none of the five kernels), every
   cell on the card: llama3.2-1b whole on 2 x 4 (tp, ZeRO-1) in fp32,
@@ -166,11 +178,15 @@ the family mesh path inside the lm_families and training paths):
   priority, traces on ``meta`` beside the corpus build (set-up) and is
   joined before the first timed phase, so no path runs beside it; it
   counts every ``cell_plan`` cell of SmolLM-135M and llama3.2-1b's
-  ``decode_32k`` (FLOPs, bytes, peak, ``fits``, the dominant term on the
-  constants the card's name selects) and extrapolates hymba-1.5b's
-  ``prefill_32k`` from two depths (``--accounting``); the path logs the
-  records, then SmolLM-135M's train step (8 x 128, through
-  ``make_train_step``), a prefill (8 x 512) and a decode step (8 at
+  ``decode_32k`` on one card (FLOPs, bytes, peak, ``fits``, the dominant
+  term on the constants the card's name selects), SmolLM-135M's
+  ``train_4k`` and ``decode_32k`` a chip of the 16 x 16 and 2 x 16 x 16
+  production meshes (``--mesh both``: wire bytes by kind and the rate
+  that priced them too) and extrapolates SmolLM-135M's and hymba-1.5b's
+  ``prefill_32k`` from two depths (``--accounting``) on both meshes,
+  hymba's on one card too; the path logs the records, then
+  SmolLM-135M's train step (8 x 128, through ``make_train_step``), a
+  prefill (8 x 512) and a decode step (8 at
   1,024 cached) are counted on ``meta`` and on the card: the same
   FLOPs, the predicted peak within PEAK_RTOL of
   ``max_memory_allocated``, each timed (median of COST_TIMED) beside its
@@ -3512,9 +3528,11 @@ def whisper_serving(cfg, params, env, dev, card, log) -> None:
           f"prefill logits {err_host32:.2e} of the max")
 
 
-def whisper_path(dev, card, log, fmesh=None) -> None:
+def whisper_path(dev, card, log, fmesh=None, ftmesh=None) -> None:
     """whisper-small whole (``whisper_serving``; in ``fmesh``, its
-    ``family_mesh`` case on the same weights), then WHISPER_TRAIN_STEPS
+    ``family_mesh`` case on the same weights; in ``ftmesh``,
+    ``family_train_mesh`` on its first FTMESH_WHISPER_LAYERS), then
+    WHISPER_TRAIN_STEPS
     steps of ``TrainLoop`` on ``TokenPipeline(frontend="frame")`` batches
     of TRAIN_BATCH x TRAIN_SEQ frames (ms a step, peak memory, the loss
     descending by WHISPER_DESCENT)."""
@@ -3533,6 +3551,11 @@ def whisper_path(dev, card, log, fmesh=None) -> None:
     whisper_serving(cfg, params, env, dev, card, log)
     if fmesh is not None:
         fmesh.run(lambda: family_mesh(cfg, params, dev, card, log))
+    if ftmesh is not None:
+        torch.cuda.empty_cache()
+        ftmesh.run(lambda: family_train_mesh(
+            *first_layers(cfg, params, FTMESH_WHISPER_LAYERS), dev, card,
+            log))
     step = make_train_step(cfg, env, AdamWConfig(
         peak_lr=TRAIN_LR, warmup_steps=max(WHISPER_TRAIN_STEPS // 10, 1),
         total_steps=WHISPER_TRAIN_STEPS))
@@ -3557,7 +3580,7 @@ def whisper_path(dev, card, log, fmesh=None) -> None:
           f"descend by {WHISPER_DESCENT}")
 
 
-def family_step(name, dev, card, log) -> None:
+def family_step(name, dev, card, log, ftmesh=None) -> None:
     """One ``make_train_step`` of ``name`` at full width and FAMILY_LAYERS
     layers on the card, in fp32, held to the same step on the host
     (FAMILY_TOL): the loss, the grad norm and each leaf of m (the clipped
@@ -3642,6 +3665,10 @@ def family_step(name, dev, card, log) -> None:
     check(e_upd[worst_upd] <= FAMILY_TOL["update_lr"],
           f"{name}: the update of the host's gradients moved {worst_upd} "
           f"{e_upd[worst_upd]:.2e} lr from the host's")
+    del pc, oc, mc, ph, oh, mh, gh, host, pu
+    if ftmesh is not None:
+        torch.cuda.empty_cache()
+        ftmesh.run(lambda: family_train_mesh(cfg, params, dev, card, log))
 
 
 def token_losses(params, batch, cfg):
@@ -3725,12 +3752,13 @@ def dbrx_step(dev, card, log) -> None:
           <= DBRX_TOL["mean"], "dbrx: bf16 vs fp32 mean token loss")
 
 
-def train_path(dev, card, log, fmesh=None) -> dict:
+def train_path(dev, card, log, fmesh=None, ftmesh=None) -> dict:
     """Training on the card (random weights from ``init_params`` seed 0,
     one model at a time, each freed before the next):
     ``smollm_training``, ``whisper_path`` (with whisper's ``family_mesh``
     case in ``fmesh``), ``family_step`` of hymba and rwkv6,
-    ``dbrx_step``. It launches none of K1-K5. Returns the path's launch
+    ``dbrx_step``; the three families' ``family_train_mesh`` in
+    ``ftmesh``. It launches none of K1-K5. Returns the path's launch
     counts."""
     import torch
 
@@ -3738,8 +3766,9 @@ def train_path(dev, card, log, fmesh=None) -> dict:
     t_path = time.time()
     build.LAUNCHES.clear()
     parts = [("smollm", lambda: smollm_training(dev, card, log)),
-             ("whisper", lambda: whisper_path(dev, card, log, fmesh))]
-    parts += [(n, lambda n=n: family_step(n, dev, card, log))
+             ("whisper", lambda: whisper_path(dev, card, log, fmesh,
+                                              ftmesh))]
+    parts += [(n, lambda n=n: family_step(n, dev, card, log, ftmesh))
               for n in FAMILY_STEPS]
     parts.append(("dbrx", lambda: dbrx_step(dev, card, log)))
     for name, part in parts:
@@ -4090,16 +4119,172 @@ def train_mesh_path(dev, card, log) -> None:
     log("train_mesh_models", s=time.time() - t)
 
 
+# -- the hybrid, ssm and audio families trained over a mesh ---------------------
+
+FTMESH_SHAPE = (2, 4)     # data x model cells, every one on the card, tp
+FTMESH_BATCH, FTMESH_SEQ = 8, 64
+FTMESH_FRAMES = 256       # whisper's encoder frames a sequence
+FTMESH_WHISPER_LAYERS = 4   # of 12 + 12; hymba and rwkv6 at FAMILY_LAYERS
+# rwkv6's per-head group norm (``models.rwkv6.GN_EPS``, 6.4e-4) divides
+# heads whose output varies next to nothing (the first positions of a
+# random-weight sequence), so any change in the order of its fp32 sums
+# moves every gradient leaf by 1-5e-4 of its largest: the meshless halves
+# of one batch against the whole, the card against the host, each mesh
+# shape alike (H100 80GB HBM3 at 700 W, at most 4.6e-4; PERF.md section
+# 6). Its leaves are held to FTMESH_RWKV_LEAF, a fixed bound above those
+# readings, and, with the group norm's eps at FTMESH_GN_EPS (the heads
+# then well conditioned), to TMESH_TOL as the other families' are.
+FTMESH_RWKV_LEAF = 1e-3
+FTMESH_GN_EPS = 1.0
+
+
+def _ftmesh_grads(cfg, params, placed, batch, env) -> dict:
+    """The loss and gradients of ``batch`` meshless and over ``env``'s
+    mesh (fp32): both losses, each leaf's largest difference relative to
+    the meshless leaf's largest, and the memory the mesh's gradients took
+    beyond what was allocated before them."""
+    import torch
+
+    from repro_torch.launch.placement import gather
+    from repro_torch.models.transformer import ShardEnv, forward_loss
+    from repro_torch.optim.adamw import (leaves, leaves_with_path,
+                                         value_and_grad)
+    one = ShardEnv(None)
+    loss1, g1 = value_and_grad(lambda p: forward_loss(p, batch, cfg, one),
+                               params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
+    loss_m, gm = value_and_grad(lambda p: forward_loss(p, batch, cfg, env),
+                                placed)
+    peak = torch.cuda.max_memory_allocated() - m0
+    errs = {"/".join(path): float((gather(b) - a).abs().max()
+                                  / a.abs().max().clamp(min=1e-30))
+            for (path, a), b in zip(leaves_with_path(g1), leaves(gm))}
+    del g1, gm
+    torch.cuda.empty_cache()
+    return dict(loss=float(loss1), loss_mesh=float(loss_m), errs=errs,
+                peak=peak)
+
+
+def family_train_mesh(cfg, params, dev, card, log) -> None:
+    """``cfg``'s model on the card (``params``, fp32 masters) trained on
+    an FTMESH_SHAPE mesh of cells on the card, tp, in fp32, on one
+    numpy-seeded batch of FTMESH_BATCH x FTMESH_SEQ tokens (whisper: and
+    FTMESH_FRAMES frames): the step-1 loss over the mesh held to the
+    meshless one (TMESH_TOL) and every gradient leaf within
+    TMESH_TOL["leaf"] (rwkv6: FTMESH_RWKV_LEAF, and TMESH_TOL["leaf"]
+    with its group norm's eps at FTMESH_GN_EPS); then one
+    ``make_train_step`` each way, the mesh's with ZeRO-1 (ms a step, and
+    kernels a step from ``device_kernels``), and the memory the mesh's
+    gradients took beyond what was allocated before them."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import rwkv6
+    from repro_torch.models.transformer import ShardEnv, place_params
+    from repro_torch.optim.adamw import (AdamWConfig, init_opt_state,
+                                         make_train_step)
+    t0 = time.time()
+    one = ShardEnv(None)
+    env = mesh_env(FTMESH_SHAPE, "tp", dev)
+    rng = np.random.default_rng(0)
+    shape = (FTMESH_BATCH, FTMESH_SEQ)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, shape).astype(
+        np.int32), "labels": rng.integers(0, cfg.vocab_size, shape).astype(
+        np.int32)}
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (FTMESH_BATCH, FTMESH_FRAMES, cfg.d_model)).astype(np.float32)
+    ocfg = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=1, total_steps=10)
+    ssm = cfg.family == "ssm"
+    with Fp32():
+        placed = place_params(params, env)
+        got = _ftmesh_grads(cfg, params, placed, batch, env)
+        conditioned = None
+        if ssm:
+            saved, rwkv6.GN_EPS = rwkv6.GN_EPS, FTMESH_GN_EPS
+            try:
+                conditioned = _ftmesh_grads(cfg, params, placed, batch, env)
+            finally:
+                rwkv6.GN_EPS = saved
+        runs = {}
+        for name in ("meshless", "mesh"):
+            e, p = (one, params) if name == "meshless" else (env, placed)
+            o = (init_opt_state(p) if name == "meshless"
+                 else mesh_opt(cfg, env, p, True))
+            step = make_train_step(cfg, e, ocfg)
+            torch.cuda.synchronize()
+            t = time.time()
+            _, _, m = step(p, o, batch)
+            loss = float(m["loss"])
+            ms = (time.time() - t) * 1e3
+            kernels = device_kernels(lambda: step(p, o, batch))
+            runs[name] = dict(loss=loss, step_ms=ms, step_kernels=kernels)
+            del o, step, m
+            torch.cuda.empty_cache()
+
+    def worst(g):
+        key = max(g["errs"], key=g["errs"].get)
+        return key, g["errs"][key], (abs(g["loss_mesh"] - g["loss"])
+                                     / abs(g["loss"]))
+    leaf_tol = FTMESH_RWKV_LEAF if ssm else TMESH_TOL["leaf"]
+    key, err, rel = worst(got)
+    extra = {}
+    if conditioned is not None:
+        ckey, cerr, crel = worst(conditioned)
+        extra = dict(gn_eps=FTMESH_GN_EPS, conditioned_worst_leaf=ckey,
+                     conditioned_rel_err=cerr, conditioned_loss_rel_err=crel)
+    layers = [cfg.n_layers] + ([cfg.n_enc_layers] if cfg.n_enc_layers
+                               else [])
+    log("family_train_mesh", arch=cfg.name, mesh=list(FTMESH_SHAPE),
+        policy="tp", zero1_step=True, layers=layers, d=cfg.d_model,
+        batch=FTMESH_BATCH, seq=FTMESH_SEQ,
+        frames=FTMESH_FRAMES if cfg.family == "audio" else None,
+        loss_mesh=got["loss_mesh"], loss_meshless=got["loss"],
+        loss_rel_err=rel, grad_worst_leaf=key, grad_rel_err=err,
+        leaf_tol=leaf_tol, tol=TMESH_TOL, **extra,
+        grad_peak_gb=got["peak"] / 1e9, mesh_step=runs["mesh"],
+        meshless_step=runs["meshless"],
+        kernels_over_meshless=runs["mesh"]["step_kernels"]
+        / max(runs["meshless"]["step_kernels"], 1),
+        s=time.time() - t0, card=card)
+    check(rel <= TMESH_TOL["loss"], f"family_train_mesh {cfg.name}: step-1 "
+          f"loss mesh {got['loss_mesh']} vs meshless {got['loss']}")
+    check(err <= leaf_tol, f"family_train_mesh {cfg.name}: gradient leaf "
+          f"{key} {err:.2e} of its largest from the meshless one (bound "
+          f"{leaf_tol:.0e})")
+    if conditioned is not None:
+        check(crel <= TMESH_TOL["loss"] and cerr <= TMESH_TOL["leaf"],
+              f"family_train_mesh {cfg.name} (group norm eps "
+              f"{FTMESH_GN_EPS}): loss {crel:.2e}, gradient leaf {ckey} "
+              f"{cerr:.2e} from the meshless ones")
+    check(all(math.isfinite(r["loss"]) for r in runs.values()),
+          f"family_train_mesh {cfg.name}: a non-finite step loss")
+    check(abs(runs["mesh"]["loss"] - got["loss"])
+          <= TMESH_TOL["loss"] * abs(got["loss"]),
+          f"family_train_mesh {cfg.name}: the ZeRO-1 step's loss "
+          f"{runs['mesh']['loss']} vs meshless {got['loss']}")
+
+
 # -- the cost model (launch/{dryrun,accounting,roofline}.py) and the hier atlas
 
 COST_ARCH = "smollm-135m"
 # dry-run cells, each through the CLI in its own process, all at once:
-# (arch, shape, accounting pass)
-DRY_CELLS = (("smollm-135m", "decode_32k", False),
-             ("smollm-135m", "train_4k", False),
-             ("smollm-135m", "prefill_32k", False),
-             ("llama3.2-1b", "decode_32k", False),
-             ("hymba-1.5b", "prefill_32k", True))
+# (arch, shape, accounting pass, --mesh: single = one card, both = a chip
+# of 16 x 16 and of 2 x 16 x 16). A mesh row traces one cell of it, as
+# long as a one-card row; SmolLM's prefill_32k on the meshes is an
+# accounting pass (two depths, 8 s): its full traces (~190 s a mesh)
+# beside the corpus build slowed the build by 29 s (PERF.md section 6)
+DRY_CELLS = (("smollm-135m", "decode_32k", False, "single"),
+             ("smollm-135m", "train_4k", False, "single"),
+             ("smollm-135m", "prefill_32k", False, "single"),
+             ("llama3.2-1b", "decode_32k", False, "single"),
+             ("hymba-1.5b", "prefill_32k", True, "single"),
+             ("smollm-135m", "decode_32k", False, "both"),
+             ("smollm-135m", "train_4k", False, "both"),
+             ("smollm-135m", "prefill_32k", True, "both"),
+             ("hymba-1.5b", "prefill_32k", True, "both"))
 DRY_TIMEOUT_S = 400  # a 32k prefill traces ~1.7 M ops: about 130 s
 # the real steps held to their meta traces: (kind, sequence, batch); the
 # prefill at 512 tokens, where the default attention chunks and the
@@ -4128,10 +4313,11 @@ class DryRuns:
         self.dir = tempfile.mkdtemp(prefix="fns_dryrun_")
         env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
         self.procs = []
-        for arch, shape, acct in DRY_CELLS:
+        for arch, shape, acct, mesh in DRY_CELLS:
             cmd = ["nice", "-n", "19", sys.executable, "-m",
                    "repro_torch.launch.dryrun", "--arch", arch, "--shape",
-                   shape] + (["--accounting"] if acct else [])
+                   shape, "--mesh", mesh] + (["--accounting"] if acct
+                                             else [])
             self.procs.append(subprocess.Popen(
                 cmd, cwd=self.dir, env=env, stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True))
@@ -4142,23 +4328,26 @@ class DryRuns:
         smoke."""
         t = time.time()
         out = []
-        for (arch, shape, acct), proc in zip(DRY_CELLS, self.procs):
+        for (arch, shape, acct, mesh), proc in zip(DRY_CELLS, self.procs):
             left = DRY_TIMEOUT_S - (time.time() - self.t0)
             try:
                 tail, _ = proc.communicate(timeout=max(left, 1.0))
             except subprocess.TimeoutExpired:
-                raise SmokeFailure(f"dryrun {arch} {shape}: still running "
-                                   f"after {DRY_TIMEOUT_S} s") from None
+                raise SmokeFailure(f"dryrun {arch} {shape} {mesh}: still "
+                                   f"running after {DRY_TIMEOUT_S} s") \
+                    from None
             log("dryrun_process", arch=arch, shape=shape, accounting=acct,
-                rc=proc.returncode, tail=tail[-2000:])
+                mesh=mesh, rc=proc.returncode, ended_s=time.time() - self.t0,
+                tail=tail[-2000:])
             check(proc.returncode == 0,
-                  f"dryrun {arch} {shape}: exit {proc.returncode}")
-            path = os.path.join(self.dir, "results", "torch",
-                                "accounting" if acct else "dryrun",
-                                f"{arch}__{shape}__single.json")
-            with open(path) as f:
-                out.append(dict(arch=arch, shape=shape, accounting=acct,
-                                record=json.load(f)))
+                  f"dryrun {arch} {shape} {mesh}: exit {proc.returncode}")
+            for tag in (("pod", "multi") if mesh == "both" else (mesh,)):
+                path = os.path.join(self.dir, "results", "torch",
+                                    "accounting" if acct else "dryrun",
+                                    f"{arch}__{shape}__{tag}.json")
+                with open(path) as f:
+                    out.append(dict(arch=arch, shape=shape, accounting=acct,
+                                    mesh=tag, record=json.load(f)))
         log("dryrun_join", waited_s=time.time() - t,
             since_start_s=time.time() - self.t0)
         return out
@@ -4178,38 +4367,56 @@ def dry_records(runs, chip, card, log) -> None:
     selects."""
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch import roofline as rf
+    from repro_torch.launch.dryrun import MESHES
     for run in runs:
         rec = run["record"]
+        mesh, chips = MESHES[run["mesh"]][:2]
+        what = f"dry-run {run['arch']} {run['shape']} {mesh}"
         if run["accounting"]:
             t = rf.roofline_terms(rec["flops"], rec["bytes"],
-                                  rec["wire_bytes"], chip)
+                                  rec["wire_bytes"], chip,
+                                  rec.get("network_bytes", 0.0))
             vals = dict(flops=rec["flops"], bytes=rec["bytes"],
-                        wire_bytes=rec["wire_bytes"], l1=rec["l1"],
+                        wire_bytes=rec["wire_bytes"],
+                        wire_by_kind=rec["coll_by_kind"], l1=rec["l1"],
                         l2=rec["l2"], accounting_s=rec["accounting_s"],
                         dominant=t.dominant, bound_s=t.bound_time_s)
             mf = rf.model_flops(get_config(run["arch"]), SHAPES[run["shape"]])
+            check(rec.get("mesh", "1xH100") == mesh, f"{what}: mesh")
         else:
-            check(rec["chip"] == chip.name and rec["mesh"] == "1xH100",
-                  f"dry-run {run['arch']} {run['shape']}: chip "
-                  f"{rec['chip']} mesh {rec['mesh']}")
+            check(rec["chip"] == chip.name and rec["mesh"] == mesh
+                  and rec["chips"] == chips,
+                  f"{what}: chip {rec['chip']} mesh {rec['mesh']}")
             m, r = rec["memory"], rec["roofline"]
+            c = rec["collectives"]
             vals = dict(flops=rec["flops_per_chip"],
                         bytes=rec["bytes_per_chip"],
                         kernel_ops=rec["kernel_ops"],
                         argument_bytes=m["argument_bytes"],
                         peak_bytes=m["peak_bytes"], fits=m["fits"],
                         capacity_bytes=m["capacity_bytes"],
+                        wire_bytes=c["wire_bytes"], wire_by_kind=c["by_kind"],
+                        coll_counts=c["counts"],
+                        priced_by=c.get("priced_by", {}),
                         dominant=r["dominant"], compute_s=r["compute_s"],
-                        memory_s=r["memory_s"], trace_s=rec["lower_s"])
+                        memory_s=r["memory_s"],
+                        collective_s=r["collective_s"],
+                        useful_flops_ratio=r["useful_flops_ratio"],
+                        cells_traced=len(rec.get("cells_traced", [[]])),
+                        trace_s=rec["lower_s"])
             check(m["fits"] == (m["peak_bytes"] <= m["capacity_bytes"]),
                   "fits disagrees with the peak")
+            check(r["useful_flops_ratio"] <= 1.0,
+                  f"{what}: more useful FLOPs than counted")
             mf = rec["model_flops_global"]
         check(all(math.isfinite(v) and v > 0
                   for v in (vals["flops"], vals["bytes"], mf)),
-              f"dry-run {run['arch']} {run['shape']}: non-positive counts")
+              f"{what}: non-positive counts")
+        check((vals["wire_bytes"] > 0) == (chips > 1),
+              f"{what}: wire bytes {vals['wire_bytes']} on {chips} chips")
         log("dryrun_cell", arch=run["arch"], shape=run["shape"],
-            accounting=run["accounting"], model_flops=mf, chip=chip.name,
-            card=card, **vals)
+            accounting=run["accounting"], mesh=mesh, chips=chips,
+            model_flops=mf, chip=chip.name, card=card, **vals)
 
 
 def real_step(cfg, spec, dev, chip, card, log) -> None:
@@ -4484,8 +4691,11 @@ def drive_paths(dev, card, log, report_path):
     by_path["lm_families"] = lm_families_path(dev, card, log,
                                               family_mesh_seg)
     torch.cuda.empty_cache()
-    by_path["train"] = train_path(dev, card, log, family_mesh_seg)
+    family_train = Segments("family_train_mesh")   # inside the train path
+    by_path["train"] = train_path(dev, card, log, family_mesh_seg,
+                                  family_train)
     by_path["family_mesh"] = family_mesh_seg.finish(SEARCH_KERNELS, log)
+    by_path["family_train_mesh"] = family_train.finish((), log)
     torch.cuda.empty_cache()
     train_mesh = Segments("train_mesh")
     train_mesh.run(lambda: train_mesh_path(dev, card, log))

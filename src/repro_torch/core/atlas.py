@@ -75,25 +75,33 @@ class AnchorAtlas:
         F = metadata.shape[1]
         members: list[dict[int, dict[int, np.ndarray]]] = [
             {f: {} for f in range(F)} for _ in range(k)]
-        cluster_index: list[dict[int, list[int]]] = [{} for _ in range(F)]
+        cindex: list[dict[int, np.ndarray]] = [{} for _ in range(F)]
         order = np.argsort(assign, kind="stable")
         for f in range(F):
-            col = metadata[:, f]
-            for i in order:
-                v = int(col[i])
-                if v < 0:
-                    continue  # unpopulated field
-                c = int(assign[i])
-                members[c][f].setdefault(v, []).append(i)  # type: ignore[arg-type]
-                lst = cluster_index[f].setdefault(v, [])
-                if not lst or lst[-1] != c:
-                    lst.append(c)
-        for c in range(k):
-            for f in range(F):
-                for v, lst in members[c][f].items():
-                    members[c][f][v] = np.asarray(lst, dtype=np.int32)
-        cindex = [{v: np.unique(np.asarray(lst, dtype=np.int32))
-                   for v, lst in cluster_index[f].items()} for f in range(F)]
+            # rows in cluster order (then row order), unpopulated ones out;
+            # each (cluster, value) group's rows in that order, the groups
+            # in the order their first rows come: each dict's keys in the
+            # order a walk of those rows first meets them
+            col = metadata[order, f].astype(np.int64)
+            keep = col >= 0
+            rows, vals = order[keep], col[keep]
+            if rows.size == 0:
+                continue
+            cs = assign[rows].astype(np.int64)
+            key = cs * (int(vals.max()) + 1) + vals
+            by = np.argsort(key, kind="stable")
+            key = key[by]
+            starts = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+            ends = np.r_[starts[1:], key.size]
+            groups = np.argsort(by[starts], kind="stable")
+            seen: dict[int, list[int]] = {}
+            for g in groups:
+                a, b = starts[g], ends[g]
+                c, v = int(cs[by[a]]), int(vals[by[a]])
+                members[c][f][v] = rows[by[a:b]].astype(np.int32)
+                seen.setdefault(v, []).append(c)
+            cindex[f] = {v: np.unique(np.asarray(lst, dtype=np.int32))
+                         for v, lst in seen.items()}
         return AnchorAtlas(centroids, assign.astype(np.int32), members, cindex)
 
     # -- query-time operations ----------------------------------------------

@@ -23,6 +23,21 @@ def _plusplus_init(x: np.ndarray, k: int, rng: np.random.Generator) -> np.ndarra
     return centers
 
 
+def _cluster_sums(x: np.ndarray, assign: np.ndarray, k: int) -> np.ndarray:
+    """Each cluster's rows of ``x`` summed in row order: what
+    ``np.add.at(zeros, assign, x)`` computes, bit for bit, with one
+    vectorized add a round, round j adding every cluster's j-th row
+    (``np.add.at`` takes a row at a time, unbuffered)."""
+    order = np.argsort(assign, kind="stable")
+    counts = np.bincount(assign, minlength=k)
+    starts = np.cumsum(counts) - counts
+    sums = np.zeros((k, x.shape[1]), dtype=x.dtype)
+    for j in range(int(counts.max(initial=0))):
+        cs = np.flatnonzero(counts > j)
+        sums[cs] += x[order[starts[cs] + j]]
+    return sums
+
+
 def kmeans(x: np.ndarray, k: int, iters: int = 15, seed: int = 0,
            block: int = 8192) -> tuple[np.ndarray, np.ndarray]:
     """Returns (centroids (k,d) unit-norm, assignment (n,) int32)."""
@@ -35,8 +50,7 @@ def kmeans(x: np.ndarray, k: int, iters: int = 15, seed: int = 0,
         for s in range(0, n, block):
             e = min(s + block, n)
             assign[s:e] = np.argmax(x[s:e] @ centers.T, axis=1)
-        sums = np.zeros_like(centers)
-        np.add.at(sums, assign, x)
+        sums = _cluster_sums(x, assign, k)
         counts = np.bincount(assign, minlength=k)
         empty = counts == 0
         if empty.any():  # re-seed empty clusters from random points

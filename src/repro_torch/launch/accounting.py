@@ -26,7 +26,14 @@ takes millions of dispatches. So, as the reference does:
    rest: the reference's correction less the counted share, 2/9 of mamba's
    9·d_in·N and 2/6 of rwkv6's 6·d·head_size; nothing is counted twice.
    Their bytes are counted (every step's ops move their tensors in eager
-   mode), so no byte correction is due either.
+   mode), so no byte correction is due either. On a mesh the rest is
+   divided by the mesh's chips, as the reference divides its whole
+   correction.
+
+On the production meshes (``mesh="pod"`` or ``"multi"``) each depth is
+one cell's trace (``dryrun.trace_mesh_cell``), and the wire bytes are
+extrapolated kind by kind, as the reference extrapolates the collectives
+it parses from each depth's HLO.
 """
 from __future__ import annotations
 
@@ -43,15 +50,24 @@ from repro_torch.models import settings
 _COUNTED_SHARE = {"hybrid": 2.0 / 9.0, "ssm": 2.0 / 6.0}
 
 
-def _trace_costs(cfg: ArchConfig, shape_name: str, policy: str) -> dict:
-    """Trace one cfg variant's step on ``meta``; return its counts."""
-    fn, _ = dryrun.step_call(cfg, SHAPES[shape_name], "meta", policy)
-    with CostCounter() as counter:
-        fn()
-    c = counter.costs()
+def _trace_costs(cfg: ArchConfig, shape_name: str, policy: str,
+                 mesh: str = "single") -> dict:
+    """Trace one cfg variant's step on ``meta`` (on one card, or a chip of
+    the ``dryrun.MESHES`` mesh ``mesh``); return its counts."""
+    spec = SHAPES[shape_name]
+    if mesh == "single":
+        fn, _ = dryrun.step_call(cfg, spec, "meta", policy)
+        with CostCounter() as counter:
+            fn()
+        c = counter.costs()
+    else:
+        c, _ = dryrun.trace_mesh_cell(cfg, spec, dryrun.meta_mesh(mesh),
+                                      policy)
+        c["wire_bytes"] = sum(c["coll_by_kind"].values())
     return {"flops": c["flops"], "bytes": c["bytes"],
             "wire_bytes": c["wire_bytes"], "coll_by_kind": c["coll_by_kind"],
-            "coll_counts": c["coll_counts"]}
+            "coll_counts": c["coll_counts"],
+            "coll_network": c["coll_network"]}
 
 
 def _recurrent_correction_flops(cfg: ArchConfig, shape_name: str) -> float:
@@ -80,20 +96,36 @@ def reduced_depth(cfg: ArchConfig, ell: int) -> ArchConfig:
         n_enc_layers=ell if cfg.n_enc_layers else 0)
 
 
+def _extrapolate(b1: dict, b2: dict, l1: int, l2: int, L: int) -> dict:
+    """Each kind of ``b1``/``b2`` (counts at depths l1, l2) at depth L."""
+    out = {}
+    for k in set(b1) | set(b2):
+        v1, v2 = b1.get(k, 0.0), b2.get(k, 0.0)
+        per = (v2 - v1) / (l2 - l1)
+        out[k] = (v1 - l1 * per) + L * per
+    return out
+
+
 def accounting_cell(arch: str, shape_name: str, multi_pod: bool = False,
-                    policy: str = "tp") -> dict:
-    """Extrapolated (flops, bytes, wire_bytes) for the full-depth cell on
-    one GPU, with the reference's keys."""
-    if multi_pod:
-        raise dryrun.mesh_not_ported("accounting_cell(multi_pod=True)")
+                    policy: str = "tp", mesh: str | None = None) -> dict:
+    """Extrapolated (flops, bytes, wire_bytes) a chip for the full-depth
+    cell, with the reference's keys: on one GPU (``mesh`` ``single``, the
+    default), or a chip of the 16 x 16 (``pod``) or 2 x 16 x 16 (``multi``,
+    also ``multi_pod=True``) mesh, where each depth is traced on one cell
+    (``dryrun.trace_mesh_cell``), the wire bytes are extrapolated kind by
+    kind (their node-network share too) and the recurrences' uncounted
+    FLOPs are divided by the mesh's chips, as the reference divides its
+    correction."""
+    mesh = mesh or ("multi" if multi_pod else "single")
+    chips = dryrun.MESHES[mesh][1]
     cfg = get_config(arch)
     pat = _pattern_len(cfg)
     l1, l2 = pat, 2 * pat
     t0 = time.time()
     settings.UNROLL_SCANS = True
     try:
-        c1 = _trace_costs(reduced_depth(cfg, l1), shape_name, policy)
-        c2 = _trace_costs(reduced_depth(cfg, l2), shape_name, policy)
+        c1 = _trace_costs(reduced_depth(cfg, l1), shape_name, policy, mesh)
+        c2 = _trace_costs(reduced_depth(cfg, l2), shape_name, policy, mesh)
     finally:
         settings.UNROLL_SCANS = False
     out = {"l1": l1, "l2": l2, "accounting_s": round(time.time() - t0, 1)}
@@ -104,13 +136,14 @@ def accounting_cell(arch: str, shape_name: str, multi_pod: bool = False,
         out[key] = fixed + L * per_layer
         out[f"{key}_per_layer"] = per_layer
         out[f"{key}_fixed"] = fixed
-    kinds = set(c1["coll_by_kind"]) | set(c2["coll_by_kind"])
-    out["coll_by_kind"] = {}
-    for k in kinds:
-        b1, b2 = c1["coll_by_kind"].get(k, 0.0), c2["coll_by_kind"].get(k, 0.0)
-        pl = (b2 - b1) / (l2 - l1)
-        out["coll_by_kind"][k] = (b1 - l1 * pl) + L * pl
+    out["coll_by_kind"] = _extrapolate(c1["coll_by_kind"], c2["coll_by_kind"],
+                                       l1, l2, L)
     out["flops"] += (_recurrent_correction_flops(cfg, shape_name)
-                     * (1.0 - _COUNTED_SHARE.get(cfg.family, 0.0)))
+                     * (1.0 - _COUNTED_SHARE.get(cfg.family, 0.0)) / chips)
     out["coll_counts_l2"] = c2["coll_counts"]
+    if chips > 1:
+        out["mesh"], out["chips"] = dryrun.MESHES[mesh][:2]
+        out["network_by_kind"] = _extrapolate(
+            c1["coll_network"], c2["coll_network"], l1, l2, L)
+        out["network_bytes"] = sum(out["network_by_kind"].values())
     return out

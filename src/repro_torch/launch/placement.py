@@ -21,20 +21,38 @@ is a grid of ``torch.device``s driven by one process
   collectives: so one process drives them all, as it drives the search
   mesh's, and no two contend for the interpreter. A ``Cell`` knows its
   place on the mesh and joins the others in collectives over named axes
-  (``psum``, ``pmax``, ``all_gather``, ``all_to_all``, ``relayout``):
+  (``psum``, ``pmax``, ``all_gather``, ``all_to_all``, ``relayout``; a
+  gradient sync's ``psum_scatter`` and ``gather_blocks``):
   each cell leaves its tensor for the others and computes its result from
   theirs on its own device, in cell order, so every run gives the same
   numbers. Every cell must call the same collectives in the same order,
   as under ``shard_map``.
+* **cost**: a cell reports each collective (kind, output bytes, group
+  size, nodes spanned) to the ``roofline.CostCounter`` active in its
+  thread, and the ops that carry it out are not counted. Under
+  ``cell_counters`` every ``run_cells`` enters one counter a cell around
+  the cell's work, so each cell's count is its chip's. Under
+  ``cell_counters(..., trace=index)`` the cell at ``index`` runs alone,
+  in the calling thread, as a ``TraceCell``: its collectives meet no
+  other cell and return tensors of the shape the group would give (on
+  ``meta``, nothing is computed), so one cell's count of a 256- or
+  512-cell mesh costs one cell's trace. Its collectives are autograd
+  functions whose backward reports the adjoint collective (an
+  all-reduce's all-reduce, an all-gather's reduce-scatter, an
+  all_to_all's all_to_all), so a traced backward is counted too.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 import threading
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
+from repro_torch.launch import roofline as rf
 from repro_torch.launch.mesh import Mesh, staging_device
 
 RENDEZVOUS_TIMEOUT_S = 600.0   # a turn that never comes back is a fault
@@ -142,6 +160,39 @@ def block_slices(mesh: Mesh, spec, shape, index: tuple) -> tuple:
 
 def _key(slices: tuple) -> tuple:
     return tuple((s.start, s.stop) for s in slices)
+
+
+def group_of(mesh: Mesh, index: tuple, entry) -> list[tuple]:
+    """The cells that differ from the one at ``index`` only on ``entry``'s
+    axes, ordered by their block along them (cell order where the axes
+    are in the mesh's order)."""
+    axes = axes_of(entry)
+    ranges = [range(n) if a in axes else (index[i],)
+              for i, (a, n) in enumerate(zip(mesh.axis_names,
+                                             mesh.devices.shape))]
+    return sorted(itertools.product(*ranges),
+                  key=lambda idx: block_index(mesh, idx, axes))
+
+
+def replica_axes(sharding: NamedSharding) -> tuple:
+    """The mesh's axes that ``sharding``'s spec does not split, in mesh
+    order: cells that differ only on them hold the same block."""
+    used = {a for e in sharding.spec for a in axes_of(e)}
+    return tuple(a for a in sharding.mesh.axis_names if a not in used)
+
+
+def sync_axes(param: NamedSharding, opt: NamedSharding) -> tuple:
+    """How a gradient laid out by ``param`` is synced onto optimizer
+    state laid out by ``opt``: (the axes it is reduce-scattered over onto
+    ``opt``'s blocks, the axes those blocks are then all-reduced over),
+    each in mesh order. Together they are ``replica_axes(param)``, the
+    cells whose partials ``psum_partials`` sums."""
+    on_opt = {a for e in opt.spec for a in axes_of(e)}
+    if opt.stack is not None:
+        on_opt |= set(axes_of(opt.stack[0]))
+    rep = replica_axes(param)
+    return (tuple(a for a in rep if a in on_opt),
+            tuple(a for a in rep if a not in on_opt))
 
 
 class Sharded:
@@ -280,27 +331,30 @@ def psum_partials(partials: np.ndarray, sharding: NamedSharding,
     partials of every cell that holds it (its batch block's share, and
     where a cell's pass covers part of the model, that part's share of a
     replicated leaf) summed in cell order. One sum a device that holds
-    the block, on it, so every device's copy is the whole gradient."""
+    the block, on it, so every device's copy is the whole gradient. The
+    cells that hold a block are those that differ only on
+    ``replica_axes(sharding)`` (``group_of``), as a cell's
+    ``psum_scatter`` sums them."""
     mesh = sharding.mesh
-    blocks: dict = {}   # block key -> (block shape, cells in cell order)
-    for index in np.ndindex(mesh.devices.shape):
-        sl = block_slices(mesh, sharding.spec, shape, index)
-        blocks.setdefault(_key(sl), ([x.stop - x.start for x in sl],
-                                     []))[1].append(index)
+    rep = replica_axes(sharding)
     shards = np.empty(mesh.devices.shape, dtype=object)
-    for blk_shape, cells in blocks.values():
-        sums: dict = {}
-        for index in cells:
-            dev = mesh.devices[index]
-            if dev not in sums:
-                total = None
-                for c in cells:
-                    if partials[c] is not None:
-                        x = partials[c].to(dev)
-                        total = x if total is None else total + x
-                sums[dev] = total if total is not None else torch.zeros(
-                    blk_shape, dtype=torch.float32, device=dev)
-            shards[index] = sums[dev]
+    sums: dict = {}     # (device, the group's first cell) -> its sum
+    for index in np.ndindex(mesh.devices.shape):
+        cells = group_of(mesh, index, rep)
+        dev = mesh.devices[index]
+        k = (dev, cells[0])
+        if k not in sums:
+            total = None
+            for c in cells:
+                if partials[c] is not None:
+                    x = partials[c].to(dev)
+                    total = x if total is None else total + x
+            if total is None:
+                sl = block_slices(mesh, sharding.spec, shape, index)
+                total = torch.zeros([x.stop - x.start for x in sl],
+                                    dtype=torch.float32, device=dev)
+            sums[k] = total
+        shards[index] = sums[k]
     return Sharded(sharding, shape, shards.flat[0].dtype, shards)
 
 
@@ -432,57 +486,125 @@ class Cell:
         every axis but ``entry``'s, ordered by their block along it."""
         axes = axes_of(entry)
         if axes not in self._groups:
-            names = self.mesh.axis_names
-            members = [idx for idx in np.ndindex(self.mesh.devices.shape)
-                       if all(idx[i] == self.index[i]
-                              for i, a in enumerate(names) if a not in axes)]
-            members.sort(key=lambda idx: block_index(self.mesh, idx, axes))
             self._groups[axes] = [int(np.ravel_multi_index(
-                idx, self.mesh.devices.shape)) for idx in members]
+                idx, self.mesh.devices.shape)) for idx in group_of(
+                    self.mesh, self.index, axes)]
         return self._groups[axes]
 
     def _values(self, x, entry) -> list | None:
         """The group's tensors along ``entry``, in block order, each on
         this cell's device; None where the group is this cell alone."""
-        group = self._group(entry)
-        if len(group) == 1:
+        if len(self._group(entry)) == 1:
             return None
-        every = self._rv.exchange(self.flat, x)
-        return [every[g].to(self.device) for g in group]
+        return [v.to(self.device) for v in self._every(x, entry)]
+
+    def report(self, kind: str, nbytes: int, entry, out=None,
+               counter=None) -> None:
+        """A collective of ``kind`` over ``entry``'s group whose output on
+        this cell is ``nbytes`` (``out``, where it is a tensor), reported
+        to ``counter`` (default: the thread's ``CostCounter``, if any)
+        with the group's size and the nodes it spans."""
+        counter = counter or rf.active_counter()
+        if counter is not None:
+            group = self._group(entry)
+            nodes = len({g // rf.CELLS_PER_NODE for g in group})
+            counter.collective(kind, nbytes, len(group), nodes, out)
+
+    def _report(self, kind: str, out: torch.Tensor, entry,
+                counter=None) -> torch.Tensor:
+        self.report(kind, out.numel() * out.element_size(), entry, out,
+                    counter)
+        return out
+
+    def _collect(self, kind: str, x, entry, combine) -> torch.Tensor:
+        """``combine`` of the group's tensors (``x`` itself where the
+        group is this cell alone), uncounted, reported as one ``kind``."""
+        if len(self._group(entry)) == 1:
+            return x
+        with _disable_current_modes():
+            out = combine(self._values(x, entry))
+        return self._report(kind, out, entry)
 
     def psum(self, x: torch.Tensor, entry) -> torch.Tensor:
         """The sum of the group's ``x`` in block order, in ``x.dtype``."""
-        vals = self._values(x, entry)
-        if vals is None:
-            return x
-        out = vals[0]
-        for v in vals[1:]:
-            out = out + v
-        return out
+        def total(vals):
+            out = vals[0]
+            for v in vals[1:]:
+                out = out + v
+            return out
+        return self._collect("all-reduce", x, entry, total)
 
     def pmax(self, x: torch.Tensor, entry) -> torch.Tensor:
-        vals = self._values(x, entry)
-        if vals is None:
-            return x
-        out = vals[0]
-        for v in vals[1:]:
-            out = torch.maximum(out, v)
-        return out
+        def most(vals):
+            out = vals[0]
+            for v in vals[1:]:
+                out = torch.maximum(out, v)
+            return out
+        return self._collect("all-reduce", x, entry, most)
 
     def all_gather(self, x: torch.Tensor, entry, dim: int) -> torch.Tensor:
         """The group's blocks joined along ``dim`` in block order."""
-        vals = self._values(x, entry)
-        return x if vals is None else torch.cat(vals, dim=dim)
+        return self._collect("all-gather", x, entry,
+                             lambda vals: torch.cat(vals, dim=dim))
 
     def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """``x`` (n, ...) with n the size of ``axis``: row m goes to the
         m-th cell of the group, and row m of the result came from it
         (``lax.all_to_all(x, axis, 0, 0, tiled=False)``)."""
-        vals = self._values(x, axis)
-        if vals is None:
-            return x
         me = self.block(axis)
-        return torch.stack([v[me] for v in vals])
+        return self._collect("all-to-all", x, axis,
+                             lambda vals: torch.stack([v[me] for v in vals]))
+
+    def _every(self, value, entry) -> list:
+        """The group's ``value``s along ``entry``, in block order."""
+        every = self._rv.exchange(self.flat, value)
+        return [every[g] for g in self._group(entry)]
+
+    def psum_scatter(self, x: torch.Tensor, scatter, reduce, sl):
+        """The gradient sync of one leaf (``sync_axes``): the sum of ``x``
+        over the cells that differ from this one only on the ``scatter``
+        and ``reduce`` axes, in cell order as ``psum_partials`` sums it,
+        and this cell's block ``sl`` of it (None where ``sl`` is: the cell
+        keeps none). Reported as what an SPMD program runs: a
+        reduce-scatter over ``scatter``, then an all-reduce of the block
+        over ``reduce``."""
+        axes = tuple(a for a in self.mesh.axis_names
+                     if a in tuple(scatter) + tuple(reduce))
+        total = x
+        if len(self._group(axes)) > 1:
+            with _disable_current_modes():
+                total = self._sum(x, axes)
+        if scatter:
+            self.report("reduce-scatter", x.numel() * x.element_size()
+                        // self.size(scatter), scatter)
+        if sl is None:
+            return None
+        with _disable_current_modes():
+            out = total[sl].clone()
+        if reduce:
+            self._report("all-reduce", out, reduce)
+        return out
+
+    def _sum(self, x, axes) -> torch.Tensor:
+        vals = self._values(x, axes)
+        out = vals[0]
+        for v in vals[1:]:
+            out = out + v
+        return out
+
+    def gather_blocks(self, piece, sl, entry, shape, dtype) -> torch.Tensor:
+        """The tensor of ``shape`` whose block ``sl`` each cell of
+        ``entry``'s group holds (``piece``, None where the cell holds
+        none), assembled on this cell: an all-gather, reported."""
+        with _disable_current_modes():
+            out = torch.empty(shape, dtype=dtype, device=self.device)
+            for x, s in self._pieces((piece, sl), entry):
+                if x is not None:
+                    out[s] = x.to(self.device)
+        return self._report("all-gather", out, entry)
+
+    def _pieces(self, value, entry) -> list:
+        return self._every(value, entry)
 
     def take(self, x: torch.Tensor, spec) -> torch.Tensor:
         """This cell's block of ``x`` (a tensor it holds whole) under
@@ -506,23 +628,127 @@ class Cell:
         return x
 
 
+class _Shaped(torch.autograd.Function):
+    """A traced collective: a fresh tensor of the group's result's shape,
+    reported as ``kind``; its backward a fresh tensor of the input's
+    shape, reported as the adjoint ``back``."""
+
+    @staticmethod
+    def forward(ctx, x, cell, entry, kind, back, shape):
+        ctx.cell, ctx.entry, ctx.back = cell, entry, back
+        ctx.in_shape, ctx.counter = x.shape, rf.active_counter()
+        with _disable_current_modes():
+            out = x.new_empty(shape)
+        return cell._report(kind, out, entry, ctx.counter)
+
+    @staticmethod
+    def backward(ctx, g):
+        with _disable_current_modes():
+            out = g.new_empty(ctx.in_shape)
+        return (ctx.cell._report(ctx.back, out, ctx.entry, ctx.counter),
+                None, None, None, None, None)
+
+
+class TraceCell(Cell):
+    """A cell that runs alone (``cell_counters(..., trace=index)``): its
+    place on the mesh and its blocks are a ``Cell``'s, but each collective
+    returns a fresh tensor of the shape the group would give (a
+    ``_Shaped``) and reports it, with no other cell to meet. On ``meta``
+    tensors that is a trace of the cell's work at no cost."""
+
+    def __init__(self, mesh: Mesh, index: tuple):
+        super().__init__(mesh, index, None)
+
+    def _shaped(self, kind, back, x, entry, shape) -> torch.Tensor:
+        if len(self._group(entry)) == 1:
+            return x
+        return _Shaped.apply(x, self, axes_of(entry), kind, back,
+                             torch.Size(shape))
+
+    def psum(self, x, entry):
+        return self._shaped("all-reduce", "all-reduce", x, entry, x.shape)
+
+    def pmax(self, x, entry):
+        return self._shaped("all-reduce", "all-reduce", x, entry, x.shape)
+
+    def all_gather(self, x, entry, dim):
+        shape = list(x.shape)
+        shape[dim] *= len(self._group(entry))
+        return self._shaped("all-gather", "reduce-scatter", x, entry, shape)
+
+    def all_to_all(self, x, axis):
+        return self._shaped("all-to-all", "all-to-all", x, axis, x.shape)
+
+    def _sum(self, x, axes):
+        return x
+
+    def _pieces(self, value, entry):
+        return [value]
+
+
+class _Counting(threading.local):
+    make = None          # counter factory, set by ``cell_counters``
+    counters = None      # cell index -> its counter
+    trace = None         # the one cell to run, or None: every cell
+
+
+_COUNTING = _Counting()
+
+
+@contextlib.contextmanager
+def cell_counters(make, trace: tuple | None = None):
+    """While inside, every ``run_cells`` called from this thread enters
+    each cell's own counter (``make()``, one a cell index, kept across
+    calls) around that cell's work; yields the dict of counters by index.
+    With ``trace``, the cell at that index runs alone as a ``TraceCell``
+    in this thread, and every slot of ``run_cells``' result holds its
+    result."""
+    saved = (_COUNTING.make, _COUNTING.counters, _COUNTING.trace)
+    _COUNTING.make, _COUNTING.counters = make, {}
+    _COUNTING.trace = None if trace is None else tuple(trace)
+    try:
+        yield _COUNTING.counters
+    finally:
+        _COUNTING.make, _COUNTING.counters, _COUNTING.trace = saved
+
+
 def run_cells(mesh: Mesh, fn) -> np.ndarray:
     """``fn(cell)`` for every cell of ``mesh``, each in its own thread
     (under the caller's grad mode), the cells taking turns between their
     collectives (``_Rendezvous``). Returns the results as an object array
     of the mesh's shape. A cell that raises breaks the others'
-    rendezvous, and its exception is raised here."""
+    rendezvous, and its exception is raised here. Under ``cell_counters``
+    each cell's work is counted by its own counter, or one cell is traced
+    alone."""
     shape = mesh.devices.shape
+    out = np.empty(shape, dtype=object)
+    make, counters = _COUNTING.make, _COUNTING.counters
+    if _COUNTING.trace is not None:
+        cell = TraceCell(mesh, _COUNTING.trace)
+        counter = counters.setdefault(cell.index, make())
+        _CURRENT.cell = cell
+        try:
+            with counter:
+                res = fn(cell)
+        finally:
+            _CURRENT.cell = None
+        for index in np.ndindex(shape):
+            out[index] = res
+        return out
     rv = _Rendezvous(int(np.prod(shape)))
     cells = [Cell(mesh, idx, rv) for idx in np.ndindex(shape)]
-    out = np.empty(shape, dtype=object)
     grad = torch.is_grad_enabled()
+    if make is not None:
+        for c in cells:
+            counters.setdefault(c.index, make())
 
     def one(cell):
         _CURRENT.cell = cell
         try:
             rv.start(cell.flat)
-            with torch.set_grad_enabled(grad):
+            with torch.set_grad_enabled(grad), (
+                    counters[cell.index] if make is not None
+                    else contextlib.nullcontext()):
                 out = fn(cell)
             rv.finish(cell.flat)
             return out

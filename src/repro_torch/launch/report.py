@@ -1,7 +1,8 @@
 """Render the roofline tables from the port's dry-run and accounting
 records (``results/torch/dryrun``, ``results/torch/accounting``).
 
-    PYTHONPATH=src python -m repro_torch.launch.report [--mesh 1xH100] [--md]
+    PYTHONPATH=src python -m repro_torch.launch.report \
+        [--mesh 1xH100|16x16|2x16x16] [--md]
 
 The terms use the constants of the chip each record names (the port's
 records carry ``"chip"``; ``roofline.chip_for`` resolves a card's name,
@@ -51,18 +52,22 @@ def terms(rec, chip: rf.Chip | None = None):
     memory_lo = analytic minimum HBM traffic; memory_hi = the counter's
     bytes (every unfused operand: an upper bound). The dominant call and
     roofline fraction use (compute, memory_lo, collective); memory_hi is a
-    diagnostic column. ``mfu`` is the model FLOPs over the peak for the
-    bound's time: the most the step could reach.
+    diagnostic column. The collective term prices a mesh record's
+    node-network bytes (``network_bytes``) at the chip's node rate and
+    the rest at its links'. ``mfu`` is the model FLOPs over the peak for
+    the bound's time: the most the step could reach.
     """
     from repro_torch.configs.base import SHAPES, get_config
     chip = chip or _chip(rec)
     acct = rec.get("accounting")
     if acct:
         flops, byts, wire = acct["flops"], acct["bytes"], acct["wire_bytes"]
+        network = acct.get("network_bytes", 0.0)
         src = "acct"
     else:
         flops, byts, wire = (rec["flops_per_chip"], rec["bytes_per_chip"],
                              rec["collectives"]["wire_bytes"])
+        network = rec["collectives"].get("network_bytes", 0.0)
         src = "trace"
     cfg = get_config(rec["arch"])
     spec = SHAPES[rec["shape"]]
@@ -71,7 +76,7 @@ def terms(rec, chip: rf.Chip | None = None):
     comp = flops / chip.peak_flops
     mem_lo = mem_lo_b / chip.hbm_bw
     mem_hi = byts / chip.hbm_bw
-    coll = wire / (chip.n_links * chip.link_bw)
+    coll = rf.collective_s(wire, chip, network)
     dom = max((comp, "compute"), (mem_lo, "memory"), (coll, "collective"))[1]
     useful = rec["model_flops_global"] / max(flops * rec["chips"], 1.0)
     bound = max(comp, mem_lo, coll)

@@ -12,7 +12,15 @@ runs eagerly, one aten op at a time, so ``CostCounter`` (a
 them. The same count comes out on ``meta`` tensors (nothing allocated)
 and on real ones. Collective wire bytes use the reference's
 ring-algorithm per-device costs (``wire_bytes``), applied by the counter
-to each ``_c10d_functional`` collective it sees; on one GPU it sees none.
+to each ``_c10d_functional`` collective it sees and to each collective a
+mesh cell reports (``CostCounter.collective``: ``launch/placement.py``'s
+cells report theirs to the counter active in their thread); on one GPU
+it sees none.
+
+A mesh of H100s spans nodes of ``CELLS_PER_NODE`` cards (cell ``i`` on
+node ``i // CELLS_PER_NODE``, the mesh's cells in row-major order): a
+collective whose group stays in one node runs over NVLink, one whose
+group spans nodes over the node network, priced at ``Chip.node_bw``.
 
 The chip's constants come from ``CHIPS``, selected by the card's name
 (``chip_for``); a card that matches no row raises.
@@ -31,22 +39,27 @@ from torch.utils.flop_counter import flop_registry
 @dataclasses.dataclass(frozen=True)
 class Chip:
     """Per-chip peaks: dense bf16 FLOP/s, HBM bytes/s, link bytes/s a
-    direction and links, and memory bytes."""
+    direction and links, memory bytes, and the node network's bytes/s a
+    direction a chip (0: none; every collective over the links)."""
     name: str
     peak_flops: float
     hbm_bw: float
     link_bw: float
     n_links: int
     memory_bytes: float
+    node_bw: float = 0.0
 
 
 # NVIDIA's H100 data sheet, dense rates (no sparsity) at the full power
-# limit; NVLink 4 at 25 GB/s a link a direction
+# limit; NVLink 4 at 25 GB/s a link a direction. Between nodes, NVIDIA's
+# DGX H100 data sheet: one 400 Gb/s ConnectX-7 port a GPU, 50 GB/s a
+# direction (the PCIe row takes the same one NIC a card)
 H100_SXM = Chip("H100 SXM", peak_flops=989.4e12, hbm_bw=3.35e12,
-                link_bw=25e9, n_links=18, memory_bytes=80e9)
+                link_bw=25e9, n_links=18, memory_bytes=80e9, node_bw=50e9)
 H100_PCIE = Chip("H100 PCIe", peak_flops=756e12, hbm_bw=2.0e12,
-                 link_bw=25e9, n_links=12, memory_bytes=80e9)
+                 link_bw=25e9, n_links=12, memory_bytes=80e9, node_bw=50e9)
 CHIPS = (H100_SXM, H100_PCIE)
+CELLS_PER_NODE = 8   # a DGX H100 node's cards
 
 
 def chip_for(device_name: str) -> Chip:
@@ -97,6 +110,16 @@ def _group_size(args, pos) -> int:
         return int(args[pos])
     from torch.distributed.distributed_c10d import _resolve_process_group
     return _resolve_process_group(args[-1]).size()
+
+
+_ACTIVE = threading.local()
+
+
+def active_counter():
+    """The ``CostCounter`` entered last on the calling thread and not yet
+    left, None where there is none."""
+    stack = getattr(_ACTIVE, "stack", None)
+    return stack[-1] if stack else None
 
 
 def _tensors(xs):
@@ -170,7 +193,8 @@ class CostCounter(TorchDispatchMode):
     * ``kernel_ops``: ops that launch work (views and ``empty`` do not);
     * ``peak_bytes``: the most storage the step's own new tensors held at
       once (tensors alive before it are the caller's to add);
-    * collectives by kind: count and ``wire_bytes``.
+    * collectives by kind: count and ``wire_bytes``, and the share of
+      those bytes that crossed the node network (``coll_network``).
 
     Backward ops count too (autograd runs them under the same mode). The
     tallies are the same on ``meta`` tensors and on real ones. On
@@ -179,7 +203,13 @@ class CostCounter(TorchDispatchMode):
     outputs of the metadata its first call gave and adds the tallies its
     first call counted, without running its meta function or the FLOP
     formulas again: a traced layer loop repeats the same few shapes.
-    Collectives are never memoized (their group is not in the key)."""
+    Collectives are never memoized (their group is not in the key).
+
+    A mesh cell's collective (``launch/placement.py``) is not a dispatched
+    op: the cell reports it (``collective``) to the counter active in its
+    thread (``active_counter``), and the ops that carry it out are not
+    counted. It adds its wire bytes and its output's storage, no FLOPs,
+    bytes or kernel op."""
 
     def __init__(self):
         super().__init__()
@@ -191,6 +221,7 @@ class CostCounter(TorchDispatchMode):
         self.peak_bytes = 0
         self.coll_by_kind: dict[str, float] = {}
         self.coll_counts: dict[str, int] = {}
+        self.coll_network: dict[str, float] = {}
         self._seen: dict[int, weakref.ref] = {}
         # storages die on whichever thread drops them (autograd's device
         # threads in a backward on the card), and a garbage collection
@@ -200,6 +231,38 @@ class CostCounter(TorchDispatchMode):
     @property
     def wire_bytes(self) -> float:
         return sum(self.coll_by_kind.values())
+
+    @property
+    def network_bytes(self) -> float:
+        """The wire bytes of collectives whose group spans nodes."""
+        return sum(self.coll_network.values())
+
+    def __enter__(self):
+        out = super().__enter__()
+        if not hasattr(_ACTIVE, "stack"):
+            _ACTIVE.stack = []
+        _ACTIVE.stack.append(self)
+        return out
+
+    def __exit__(self, *exc):
+        _ACTIVE.stack.pop()
+        return super().__exit__(*exc)
+
+    def collective(self, kind: str, nbytes: int, group: int, nodes: int,
+                   out=None) -> None:
+        """A collective of ``kind`` whose output is ``nbytes`` over a
+        group of ``group`` cells on ``nodes`` nodes: its ``wire_bytes``
+        (over the node network where ``nodes`` > 1); ``out``, the tensor
+        it returned, is tracked as the step's own storage."""
+        w = wire_bytes(kind, nbytes, group)
+        with self._lock:
+            self.coll_by_kind[kind] = self.coll_by_kind.get(kind, 0.0) + w
+            self.coll_counts[kind] = self.coll_counts.get(kind, 0) + 1
+            if nodes > 1:
+                self.coll_network[kind] = (self.coll_network.get(kind, 0.0)
+                                           + w)
+        if out is not None:
+            self._track(out)
 
     def _freed(self, key: int, nbytes: int) -> None:
         with self._lock:
@@ -289,6 +352,7 @@ class CostCounter(TorchDispatchMode):
                 "wire_bytes": self.wire_bytes,
                 "coll_by_kind": dict(self.coll_by_kind),
                 "coll_counts": dict(self.coll_counts),
+                "coll_network": dict(self.coll_network),
                 "kernel_ops": self.kernel_ops,
                 "peak_bytes": self.peak_bytes}
 
@@ -313,13 +377,21 @@ class RooflineTerms:
         return max(self.compute_s, self.memory_s, self.collective_s)
 
 
+def collective_s(wire: float, chip: Chip, network: float = 0.0) -> float:
+    """Seconds of ``wire`` bytes a chip, ``network`` of them over the node
+    network (at ``chip.node_bw``) and the rest over its links."""
+    out = (wire - network) / (chip.n_links * chip.link_bw)
+    return out + (network / chip.node_bw if network else 0.0)
+
+
 def roofline_terms(flops_per_chip: float, bytes_per_chip: float,
                    wire_bytes_per_chip: float,
-                   chip: Chip = H100_SXM) -> RooflineTerms:
+                   chip: Chip = H100_SXM,
+                   network_bytes: float = 0.0) -> RooflineTerms:
     return RooflineTerms(
         compute_s=flops_per_chip / chip.peak_flops,
         memory_s=bytes_per_chip / chip.hbm_bw,
-        collective_s=wire_bytes_per_chip / (chip.n_links * chip.link_bw),
+        collective_s=collective_s(wire_bytes_per_chip, chip, network_bytes),
         flops_per_chip=flops_per_chip,
         bytes_per_chip=bytes_per_chip,
         wire_bytes_per_chip=wire_bytes_per_chip,

@@ -20,8 +20,8 @@ autograd, each layer rematerialized in the backward pass
 without it. Every pass runs on the device the parameters live on.
 
 Over a device mesh (``ShardEnv(mesh, data_axes, model_axis, policy)``)
-the serving passes of every family, and ``forward_loss`` of the dense,
-vlm and moe families, run on every cell
+the serving passes and ``forward_loss`` of every family run on every
+cell
 (``launch.placement.run_cells``): the parameters placed by
 ``param_shardings`` (``MeshParams``: each cell's module of its blocks,
 views where the cell is on their device), the batch split as the
@@ -39,8 +39,7 @@ layout and the full sequence's under "sp". Every state a layer leaves
 (K/V, the ring's slots, mamba's and rwkv6's states, whisper's cross
 K/V) is stored into its cell's block of the cache placed by
 ``cache_shardings``. A mesh of one cell runs the one-device pass on
-that cell's device, bit for bit; ``forward_loss`` of a hybrid, ssm or
-audio model on a larger mesh raises (ROADMAP queue 1 item 5.2b).
+that cell's device, bit for bit.
 
 ``forward_loss`` over the cells is one autograd graph: each cell's
 module holds its own ``Parameter`` leaves (views of the placed blocks),
@@ -791,18 +790,9 @@ def _whisper_encode(params: Transformer, frames, cfg: ArchConfig,
 # over a mesh
 # ---------------------------------------------------------------------------
 
-def _on_mesh(env: ShardEnv, cfg: ArchConfig, what: str) -> bool:
-    """True where ``what`` runs on the cells of a mesh of more than one;
-    ``forward_loss`` of a hybrid, ssm or audio model raises there."""
-    if env.cells == 1:
-        return False
-    if what == "forward_loss" and cfg.family in ("hybrid", "ssm", "audio"):
-        raise NotImplementedError(
-            f"{what}: training the {cfg.family} family on a mesh of more "
-            f"than one cell is not ported (ROADMAP queue 1 item 5.2b; every "
-            f"family serves over a mesh, and the dense, vlm and moe "
-            f"families train over one)")
-    return True
+def _on_mesh(env: ShardEnv) -> bool:
+    """True where a pass runs on the cells of a mesh of more than one."""
+    return env.cells > 1
 
 
 def _batch_shape(batch: dict) -> tuple[int, int]:
@@ -868,7 +858,7 @@ def forward_loss(params, batch: dict, cfg: ArchConfig,
     every cell computes the loss of its block of the batch and the
     result, on the mesh's first cell, is the whole batch's token mean
     (``_loss_cells``)."""
-    if _on_mesh(env, cfg, "forward_loss"):
+    if _on_mesh(env):
         return _loss_cells(params, batch, cfg, env)
     _placed(params, env, "forward_loss")
     enc = (_whisper_encode(params, batch["frames"], cfg, env, remat=True)
@@ -880,28 +870,42 @@ def forward_loss(params, batch: dict, cfg: ArchConfig,
     return softmax_xent(logits, _ids(params, batch["labels"]))
 
 
-def _loss_cells(params, batch: dict, cfg: ArchConfig,
-                env: ShardEnv) -> torch.Tensor:
-    """``forward_loss`` on the cells, under the caller's grad mode: each
-    cell runs the layers on its block of the residual stream (no remat),
-    relays out to the full sequence before the head, gathers the
-    vocab-split logits and takes ``softmax_xent`` of its batch block's
-    labels (split as ``env.full()``). The cells of one batch block hold
-    the same loss, so the first cell of each block counts, once; the
-    blocks' token means, summed in block order on the first cell and
-    divided by their number, are the batch's (the blocks are equal)."""
+def cell_loss(batch: dict, cfg: ArchConfig):
+    """(the batch without its labels, ``body``): ``body(p, b, e)`` is
+    ``forward_loss``'s work in one cell (``_on_cells``): the layers on its
+    block of the residual stream (no remat; an audio batch's encoder
+    first, on its block of the frames), relaid out to the full sequence
+    before the head, the vocab-split logits gathered, and ``softmax_xent``
+    of its batch block's labels (split as ``env.full()``)."""
     inputs = {k: v for k, v in batch.items() if k != "labels"}
     labels = batch["labels"]
     labels = (labels if torch.is_tensor(labels)
               else torch.from_numpy(np.asarray(labels)))
-    B, S = _batch_shape(inputs)
+    B = _batch_shape(inputs)[0]
+    audio = cfg.family == "audio"
+    S_enc = int(np.shape(inputs["frames"])[1]) if audio else 0
 
     def body(p, b, e):
-        h = _stack_forward(p, cfg, _embed(p, b), "train", env=e)
+        enc = (_whisper_encode(p, b["frames"], cfg, e.at(e.cell, B, S_enc))
+               if audio else None)
+        h = _stack_forward(p, cfg, _embed(p, b), "train", enc_out=enc,
+                           env=e)
         h = rms_norm(e.to_full(h), p.final_norm, cfg.norm_eps)
         lab = e.cell.take(labels, P(*e.full()[:2]))
         return softmax_xent(_logits(p, h, cfg, e), _ids(p, lab))
 
+    return inputs, body
+
+
+def _loss_cells(params, batch: dict, cfg: ArchConfig,
+                env: ShardEnv) -> torch.Tensor:
+    """``forward_loss`` on the cells, under the caller's grad mode: each
+    cell's loss (``cell_loss``). The cells of one batch block hold the
+    same loss, so the first cell of each block counts, once; the blocks'
+    token means, summed in block order on the first cell and divided by
+    their number, are the batch's (the blocks are equal)."""
+    inputs, body = cell_loss(batch, cfg)
+    B, S = _batch_shape(inputs)
     out = _on_cells(params, inputs, cfg, env, body, "forward_loss")
     entry = env.at(None, B, S).full()[0]
     first: dict = {}
@@ -930,7 +934,7 @@ def prefill(params, batch: dict, cfg: ArchConfig, env: ShardEnv,
     On a mesh, ``params`` are placed for it (``place_params``); over more
     than one cell the logits come back on the mesh's first cell and every
     leaf of the cache but ``pos`` is ``Sharded`` by ``cache_shardings``."""
-    if _on_mesh(env, cfg, "prefill"):
+    if _on_mesh(env):
         return _prefill_cells(params, batch, cfg, env, cache_len)
     params = _placed(params, env, "prefill")
     h = _embed(params, batch)
@@ -1004,7 +1008,7 @@ def decode_step(params, cache: dict, batch: dict, cfg: ArchConfig,
                 f"decode_step: the cache's {R} positions are all used; "
                 f"prefill with cache_len= the prompt plus the tokens to "
                 f"decode")
-    if _on_mesh(env, cfg, "decode_step"):
+    if _on_mesh(env):
         def body(p, b, e):
             h = _embed(p, b)
             posv = torch.full((1, 1), pos, dtype=torch.int32,
@@ -1178,7 +1182,7 @@ def encode(params, batch: dict, cfg: ArchConfig,
         return hf / torch.clamp(torch.linalg.vector_norm(
             hf, dim=-1, keepdim=True), min=1e-9)
 
-    if not _on_mesh(env, cfg, "encode"):
+    if not _on_mesh(env):
         return body(_placed(params, env, "encode"), batch, ONE_DEVICE)
     B, S = _batch_shape(batch)
     out = _on_cells(params, batch, cfg, env, body, "encode")

@@ -26,6 +26,9 @@ counts each element once; ``init_opt_state`` lays ``m``/``v`` out by
 ``adamw_update`` updates each block of ``m``/``v`` once a device, on that
 block of the gradient (a view: the reduce-scatter's take), and gathers
 the new parameters back to their layout (``placement.reshard``).
+``cell_update`` is that sync and update as one cell of an SPMD program
+runs it, on its own blocks: what the dry-run traces a chip of a
+production mesh by (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -37,7 +40,8 @@ import numpy as np
 import torch
 
 from repro_torch.launch.placement import (Sharded, block_slices, gather,
-                                          place, psum_partials, reshard)
+                                          holds, place, psum_partials,
+                                          reshard, sync_axes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -324,7 +328,12 @@ def value_and_grad(fn: Callable, params):
     return loss.detach(), unflatten(params, gs, plain=True)
 
 
-def _mesh_value_and_grad(fn: Callable, params):
+def cell_partials(fn: Callable, params) -> tuple:
+    """(the loss ``fn`` returns for ``MeshParams``, each leaf's partials):
+    one backward over the cells' graph to every cell's own leaves; the
+    partials of leaf i are an object array of the mesh's shape, each
+    cell's gradient of its block (None where the loss does not read
+    it)."""
     cells = list(np.ndindex(params.cells.shape))
     per_cell = [leaves(params.cells[index]) for index in cells]
     n = len(per_cell[0])
@@ -333,13 +342,21 @@ def _mesh_value_and_grad(fn: Callable, params):
         gs = list(torch.autograd.grad(
             loss, [x for xs in per_cell for x in xs], allow_unused=True))
     out = []
-    for i, placed in enumerate(leaves(params)):
+    for i in range(n):
         partials = np.empty(params.cells.shape, dtype=object)
         for c, index in enumerate(cells):
             partials[index] = gs[c * n + i]
-            gs[c * n + i] = None    # freed once summed
-        out.append(psum_partials(partials, placed.sharding, placed.shape))
-    return loss.detach(), unflatten(params, out, plain=True)
+        out.append(partials)
+    return loss.detach(), out
+
+
+def _mesh_value_and_grad(fn: Callable, params):
+    loss, parts = cell_partials(fn, params)
+    out = []
+    for i, placed in enumerate(leaves(params)):
+        out.append(psum_partials(parts[i], placed.sharding, placed.shape))
+        parts[i] = None    # freed once summed
+    return loss, unflatten(params, out, plain=True)
 
 
 def _bf16(g):
@@ -354,6 +371,65 @@ def _bf16(g):
         if x is not None:
             shards[index] = done.setdefault(id(x), x.to(torch.bfloat16))
     return Sharded(g.sharding, g.shape, torch.bfloat16, shards)
+
+
+@torch.no_grad()
+def cell_update(cell, params, xs, gs, opt_state: dict,
+                cfg: AdamWConfig) -> dict:
+    """``make_train_step``'s gradient sync and ``adamw_update`` as one cell
+    of an SPMD program runs them, on its own blocks: ``cell`` is a
+    ``launch.placement.Cell``, ``params`` the placed parameters
+    (``MeshParams``), ``xs`` the cell's blocks of their leaves and ``gs``
+    its partials of them (None counts as zeros). Each partial is summed
+    over the cells that share its block, in cell order as
+    ``psum_partials`` sums it, onto the cell's block of ``m``
+    (``Cell.psum_scatter`` over ``placement.sync_axes``: a reduce-scatter
+    where ZeRO-1 splits ``m`` further, an all-reduce over the block's
+    replicas), then rounded to bf16 under a bf16 sync; the global norm
+    counts each block once (on the first of its replicas) and is
+    all-reduced; each block of ``m``/``v`` the cell holds is updated by
+    ``_upd``, and where ZeRO-1 split it the new parameter block is
+    all-gathered (``Cell.gather_blocks``). Returns {"params": the cell's
+    new parameter blocks, "m", "v": its new blocks of them (None where it
+    holds none), "grad_norm"}. Only the sum of squares behind the norm is
+    taken in another order than ``adamw_update`` takes it."""
+    named = leaves_with_path(params)
+    ms, vs = leaves(opt_state["m"]), leaves(opt_state["v"])
+    synced, sq = [], torch.zeros((), dtype=torch.float32, device=cell.device)
+    for (_, leaf), x, g, m in zip(named, xs, gs, ms):
+        g = torch.zeros_like(x) if g is None else g
+        scatter, reduce = sync_axes(leaf.sharding, m.sharding)
+        sl = None
+        if holds(m.sharding, cell.index):
+            sl = (slice(None),) * g.ndim
+            if m.sharding.stack is None:
+                pb = block_slices(cell.mesh, leaf.spec, leaf.shape,
+                                  cell.index)
+                mb = block_slices(cell.mesh, m.spec, m.shape, cell.index)
+                sl = tuple(slice(b.start - a.start, b.stop - a.start)
+                           for a, b in zip(pb, mb))
+        g = cell.psum_scatter(g, scatter, reduce, sl)
+        if g is not None:
+            if cfg.grad_sync_dtype == "bf16":
+                g = g.to(torch.bfloat16)
+            if cell.block(reduce) == 0:
+                sq = sq + torch.sum(torch.square(g.float()))
+        synced.append((g, sl, scatter))
+    gnorm = torch.sqrt(cell.psum(sq, cell.mesh.axis_names))
+    scalars = _scalars(cfg, opt_state["step"].local(cell) + 1, gnorm)
+    out = {"params": [], "m": [], "v": [], "grad_norm": gnorm}
+    for (path, _), x, (g, sl, scatter), m, v in zip(named, xs, synced, ms,
+                                                    vs):
+        new = nm = nv = None
+        if g is not None:
+            new, nm, nv = _upd(cfg, path, x.detach()[sl], g, m.local(cell),
+                               v.local(cell), *scalars)
+        if scatter:
+            new = cell.gather_blocks(new, sl, scatter, x.shape, x.dtype)
+        out["params"].append(new)
+        out["m"].append(nm)
+        out["v"].append(nv)
+    return out
 
 
 def make_train_step(cfg_arch, env, opt_cfg: AdamWConfig,

@@ -334,18 +334,23 @@ def test_accounting_equals_full_depth_trace(arch, n_layers, monkeypatch):
 
 def test_accounting_adds_the_uncounted_recurrence(monkeypatch):
     """hymba's record: the extrapolated trace plus 7/9 of the reference's
-    correction (mamba's elementwise step work)."""
+    correction (mamba's elementwise step work); on the 2 x 16 x 16 mesh
+    (``multi_pod=True``, as the reference calls it) that rest divided by
+    its 512 chips, as the reference divides its correction."""
     cfg = tiny("hymba-1.5b")
     monkeypatch.setattr(accounting, "get_config", lambda name: cfg)
     spec = _tiny_spec("prefill")
     monkeypatch.setitem(SHAPES, spec.name, spec)
-    got = accounting.accounting_cell("hymba-1.5b", spec.name)
-    traced = got["flops_fixed"] + cfg.n_layers * got["flops_per_layer"]
     corr = accounting._recurrent_correction_flops(cfg, spec.name)
     assert corr > 0
-    assert got["flops"] == pytest.approx(traced + corr * 7 / 9, rel=1e-12)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        accounting.accounting_cell("hymba-1.5b", spec.name, multi_pod=True)
+    for multi_pod, chips in ((False, 1), (True, 512)):
+        got = accounting.accounting_cell("hymba-1.5b", spec.name,
+                                         multi_pod=multi_pod)
+        traced = got["flops_fixed"] + cfg.n_layers * got["flops_per_layer"]
+        assert got["flops"] == pytest.approx(traced + corr * 7 / 9 / chips,
+                                             rel=1e-12)
+    assert (got["mesh"], got["chips"]) == ("2x16x16", 512)
+    assert got["wire_bytes"] > 0 and got["coll_by_kind"]["all-reduce"] > 0
 
 
 # --- dry-run -----------------------------------------------------------------
@@ -420,12 +425,18 @@ def test_dryrun_cli_records_and_failures(tmp_path, monkeypatch):
                        / f"smollm-135m__{spec.name}__single.json")
                       .read_text())
     assert acct["flops"] == pytest.approx(rec["flops_per_chip"], rel=1e-9)
-    for mesh in ("multi", "both"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    for mesh, tags in (("multi", ["multi"]), ("both", ["pod", "multi"])):
+        with pytest.raises(SystemExit) as e:   # "both": multi cached
             dryrun.main(args + ["--mesh", mesh])
-    with pytest.raises(NotImplementedError):
-        dryrun.lower_cell("smollm-135m", spec.name, multi_pod=True,
-                          device="cpu")
+        assert e.value.code == 0
+        for tag in tags:
+            got = json.loads((out / f"smollm-135m__{spec.name}__{tag}.json")
+                             .read_text())
+            assert (got["mesh"], got["chips"]) == dryrun.MESHES[tag][:2]
+            assert got["collectives"]["wire_bytes"] > 0
+    rec = dryrun.lower_cell("smollm-135m", spec.name, multi_pod=True,
+                            device="cpu")
+    assert (rec["mesh"], rec["chips"]) == ("2x16x16", 512)
 
 
 # --- report ------------------------------------------------------------------
