@@ -14,7 +14,7 @@ mask at k=32) and also at ragged shapes (K1 in its three forms across its
 tile and query-group edges; K4 across its words and grid, at odd and even
 F, v_cap 32 to 1024 and with every clause inactive; K2, K3 and K5 at
 n % 32 != 0 and d % 4 != 0; K5 with no valid id, no pass bit and every
-pass bit), and then drives thirteen paths, each with the launch counts
+pass bit), and then drives fourteen paths, each with the launch counts
 cleared just before it and read just after (the mesh path in segments
 inside two others, the LM mesh path's retrieval inside the rag path,
 the family mesh path inside the lm_families and training paths, the
@@ -173,7 +173,7 @@ family training mesh path inside the training path):
   checkpoint onto 3 x 1 (dp, ZeRO-1) by ``try_resume(shardings)``, the
   losses after it held to the straight run's;
 * the cost model (``cost_model_path``; it launches none of the five
-  kernels), last: the dry-run CLI (``python -m
+  kernels): the dry-run CLI (``python -m
   repro_torch.launch.dryrun``), one process a cell at the lowest
   priority, traces on ``meta`` beside the corpus build (set-up) and is
   joined before the first timed phase, so no path runs beside it; it
@@ -196,7 +196,21 @@ family training mesh path inside the training path):
   device leaves, its anchor seeds pass their predicates inside the
   clusters it used, and its ``run_queries`` ids pass their predicates
   with recall@10 within 0.08 of the flat atlas's on the conjunctive
-  Q=64 batch.
+  Q=64 batch;
+* the examples (``examples``), last, each script loaded from its file
+  and run in process: ``examples/torch_rag_serve.py --full`` at its
+  defaults on cuda:0 (SmolLM-135M whole encodes 2,048 documents of 32
+  tokens, the index is built on the host and served on the card; 32
+  queries under one predicate through ``retrieve`` and, after a warm-up,
+  ``retrieve_batch``, whose first K1-K3 calls are held to their plain
+  versions), every id passing the predicate and the card's batched ids
+  overlapping by at least 0.98 those of a ``device="cpu"`` service over
+  the same embeddings (recall@10, ms a query and restarts logged); then
+  ``examples/torch_train_lm.py --full --steps 30`` into a temporary
+  ``--ckpt-dir`` (a checkpoint at step 25) and again on that directory:
+  the second run resumes from the newest checkpoint and ends at the same
+  last step, and the first run's last logged loss is below its first (ms
+  a step and each checkpoint write logged).
 
 Prints the kernels' timings as one JSON line (each record with its
 share of its bound and its time against one PyTorch call, both from this
@@ -670,11 +684,13 @@ def build_corpus(log):
                  full.field_names, full.vocab_sizes)
     held = (full.vectors[N_PAPER:], full.metadata[N_PAPER:])
     t1 = time.time()
-    graph = build_alpha_knn(ds.vectors, config=FnsConfig())
+    stages = {}
+    graph = build_alpha_knn(ds.vectors, config=FnsConfig(), times=stages)
     t2 = time.time()
     atlas = AnchorAtlas.build(ds, seed=0)
     t3 = time.time()
-    log("host_build", data_s=t1 - t0, graph_s=t2 - t1, atlas_s=t3 - t2,
+    log("host_build", data_s=t1 - t0, graph_s=t2 - t1,
+        graph_stages=stages, atlas_s=t3 - t2,
         n=ds.n, d=ds.d, fields=ds.n_fields, graph_width=graph.r_pad,
         clusters=atlas.n_clusters, held_out=held[0].shape[0])
     return ds, FiberIndex(ds.vectors, ds.metadata, graph, atlas), held
@@ -4604,6 +4620,143 @@ def cost_model_path(dry, ds, index, batches, dev, card, log) -> dict:
     return launches
 
 
+# the examples path: the port's user-facing scripts, loaded from their files
+EXAMPLES_OVERLAP = 0.98     # card ids vs the same embeddings on the host
+EXAMPLE_TRAIN_STEPS = 30    # train_lm's --steps here (its default is 60)
+
+
+def load_example(name: str):
+    """``examples/torch_<name>.py`` as a module, its ``main`` not run."""
+    import importlib.util
+    path = os.path.join(ROOT, "examples", f"torch_{name}.py")
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_rag_serve(card, log) -> None:
+    """``torch_rag_serve.py --full`` at its defaults on cuda:0 (SmolLM-135M
+    whole, 2,048 documents, 32 queries): the first K1-K3 calls held to
+    their plain versions, ``retrieve``'s and ``retrieve_batch``'s ids
+    checked against the predicate, and the card's embeddings searched
+    again by a ``device="cpu"`` service over the same dataset, whose
+    ``query_batch`` ids the card's must overlap by EXAMPLES_OVERLAP."""
+    import numpy as np
+    from repro_torch.core.search import SearchParams
+    from repro_torch.serve.retrieval import RetrievalService
+    mod = load_example("rag_serve")
+    t = time.time()
+    with FirstCalls() as seen:
+        out = mod.main(["--full", "--device", "cuda:0"])
+    run_s = time.time() - t
+    check(set(seen) == set(SEARCH_KERNELS), f"examples: kernels never "
+          f"called: {set(SEARCH_KERNELS) - set(seen)}")
+    check_first_calls(seen, "examples/rag_serve", log)
+    ds, pred = out["dataset"], out["predicate"]
+    q = len(out["ids"])
+    masks = [pred.mask(ds.metadata)] * q
+    check_results("examples/rag_serve/sequential",
+                  [np.asarray(r[0]) for r in out["sequential"]], masks)
+    check_results("examples/rag_serve/batch", out["ids"], masks)
+    t = time.time()
+    host = RetrievalService.build(ds, graph_k=24, r_max=64,
+                                  params=SearchParams(k=10), device="cpu")
+    h_ids, _ = host.query_batch(out["query_vectors"], [pred] * q)
+    host_s = time.time() - t
+    ov = overlap(out["ids"], h_ids)
+    log("examples_rag_serve", docs=ds.n, queries=q, s=run_s,
+        index_s=out["index_s"],
+        recall_at_10=out["recall"], recall_at_10_batch=out["recall_batch"],
+        ms_per_query=out["ms_per_query"],
+        ms_per_query_batch=out["ms_per_query_batch"],
+        mean_restarts=out["mean_restarts"], host_overlap=ov,
+        host_exact=float(np.mean([np.array_equal(a, b) for a, b in
+                                  zip(out["ids"], h_ids)])),
+        host_s=host_s, card=card)
+    check(ov >= EXAMPLES_OVERLAP, f"examples: rag_serve card vs host id-set "
+          f"overlap {ov:.4f} < {EXAMPLES_OVERLAP}")
+
+
+def example_train_lm(card, log) -> None:
+    """``torch_train_lm.py --full --steps EXAMPLE_TRAIN_STEPS`` on cuda:0
+    into a temporary ``--ckpt-dir`` (a checkpoint at step 25), then again
+    on that directory: the second run resumes from the newest checkpoint
+    and ends at the same last step; the first run's last logged loss is
+    below its first. Each checkpoint write is timed to its end."""
+    import shutil
+    import signal
+    import tempfile
+
+    from repro_torch.checkpoint import ckpt
+    mod = load_example("train_lm")
+    d = tempfile.mkdtemp(prefix="fns_example_ckpt_")
+    real_save, saves = ckpt.save, []
+
+    def timed_save(*args, **kw):
+        t = time.time()
+        handle = real_save(*args, **kw)
+        if handle is not None:
+            handle.wait()
+        saves.append(time.time() - t)
+        return handle
+
+    sigs = (signal.SIGTERM, signal.SIGUSR1)
+    kept = [signal.getsignal(s) for s in sigs]
+    argv = ["--full", "--steps", str(EXAMPLE_TRAIN_STEPS), "--ckpt-dir", d,
+            "--device", "cuda:0"]
+    ckpt.save = timed_save
+    try:
+        t = time.time()
+        first = mod.main(argv)
+        first_s = time.time() - t
+        newest = ckpt.latest_step(d)
+        t = time.time()
+        second = mod.main(argv)
+        second_s = time.time() - t
+    finally:
+        ckpt.save = real_save
+        for s, h in zip(sigs, kept):
+            signal.signal(s, h)
+        shutil.rmtree(d, ignore_errors=True)
+    losses = [m["loss"] for m in first["metrics"]]
+    log("examples_train_lm", steps=EXAMPLE_TRAIN_STEPS,
+        logged_losses=losses, first_s=first_s, second_s=second_s,
+        step_ms=statistics.median(
+            first["step_times"][TRAIN_TIMED_FROM:]) * 1e3,
+        first_step_s=first["step_times"][0], save_s=saves,
+        newest_ckpt=newest, resumed_at=second["start"],
+        resumed_losses=[m["loss"] for m in second["metrics"]], card=card)
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"examples: train_lm's logged loss went {losses}")
+    check(first["start"] == 0 and newest is not None
+          and second["start"] == newest,
+          f"examples: train_lm resumed at {second['start']}, the newest "
+          f"checkpoint is {newest}")
+    check(second["last_step"] == first["last_step"] == EXAMPLE_TRAIN_STEPS,
+          f"examples: train_lm ended at {first['last_step']} and "
+          f"{second['last_step']}")
+
+
+def examples_path(card, log) -> dict:
+    """The port's two LM examples on the card, in process, each loaded
+    from its file: ``torch_rag_serve.py`` (K1-K3) and
+    ``torch_train_lm.py`` (none of K1-K5). The three host examples do no
+    card work and are held line for line on the CPU. Returns the path's
+    launch counts."""
+    import torch
+    from repro_torch.kernels import build
+    t_path = time.time()
+    build.LAUNCHES.clear()
+    example_rag_serve(card, log)
+    torch.cuda.empty_cache()
+    example_train_lm(card, log)
+    torch.cuda.empty_cache()
+    launches = path_launches("examples", SEARCH_KERNELS, log)
+    log("examples_path", s=time.time() - t_path)
+    return launches
+
+
 def run(report_path: str | None) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4703,6 +4856,9 @@ def drive_paths(dev, card, log, report_path):
     torch.cuda.empty_cache()
     by_path["cost_model"] = cost_model_path(dry_runs, ds, index, batches,
                                             dev, card, log)
+    del ds, index, batches
+    torch.cuda.empty_cache()
+    by_path["examples"] = examples_path(card, log)
     # each kernel's launches come from the path it belongs to: K1-K3 from
     # the search, K4 and K5 from the parity gate
     for name, rec in records.items():

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -42,10 +43,11 @@ class Graph:
         return self.neighbors.nbytes
 
 
-def _top_k_rows(g: np.ndarray, k: int, idx: np.ndarray,
-                sims: np.ndarray | None) -> None:
+def _top_k_select(g: np.ndarray, k: int, idx: np.ndarray,
+                  sims: np.ndarray | None) -> None:
     """Each row's k largest entries of ``g``, in descending order, into
-    ``idx`` (and their values into ``sims``)."""
+    ``idx`` (and their values into ``sims``), by a partition of the whole
+    row: the reference's ranking, ties included."""
     part = np.argpartition(-g, k - 1, axis=1)[:, :k]
     vals = np.take_along_axis(g, part, axis=1)
     order = np.argsort(-vals, axis=1)
@@ -54,30 +56,156 @@ def _top_k_rows(g: np.ndarray, k: int, idx: np.ndarray,
         sims[:] = np.take_along_axis(vals, order, axis=1)
 
 
+TOPK_GROUPS = 4   # group maxima a line per entry kept, for the threshold
+
+
+def _flat_nonzero(mask: np.ndarray) -> np.ndarray:
+    """``np.flatnonzero`` of a sparse contiguous mask, read 8 bytes a
+    word: only the words that hold a True are looked into."""
+    flat = mask.reshape(-1)
+    if flat.size % 8:
+        return np.flatnonzero(flat)
+    words = np.flatnonzero(flat.view(np.uint64))
+    w, k = np.nonzero(flat.reshape(-1, 8)[words])
+    return words[w] * 8 + k
+
+
+def _best(g: np.ndarray, kk: int, axis: int = 1,
+          floor: np.ndarray | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """Each row's (``axis`` 1) or column's (``axis`` 0) kk largest entries
+    of ``g`` at or above its ``floor``, in descending order, as (values,
+    their column or row ids); -inf and -1 past the last. Tied entries come
+    in any order. The kk-th largest of a line's group maxima bounds its
+    kk-th largest entry from below, so only the few entries at or above
+    it (and the floor) are sorted."""
+    lines, n = g.shape if axis == 1 else g.shape[::-1]
+    c = max(1, n // (TOPK_GROUPS * kk))
+    m = n // c
+    if m <= kk:
+        x = np.ascontiguousarray(g if axis == 1 else g.T)
+        order = np.argsort(-x, axis=1, kind="stable")[:, :kk]
+        vals = np.take_along_axis(x, order, axis=1)
+        if floor is not None:
+            low = vals < floor[:, None]
+            vals, order = np.where(low, -np.inf, vals), np.where(low, -1, order)
+        pad = kk - vals.shape[1]
+        return (np.pad(vals, ((0, 0), (0, pad)), constant_values=-np.inf),
+                np.pad(order, ((0, 0), (0, pad)), constant_values=-1))
+    # m disjoint groups, group j the entries j, j + m, j + 2m, ...
+    if axis == 1:
+        gmax = g[:, :m * c].reshape(lines, c, m).max(axis=1)
+        tail = g[:, m * c:].max(axis=1, keepdims=True) if m * c < n else None
+    else:
+        gmax = g[:m * c].reshape(c, m, lines).max(axis=0).T
+        tail = g[m * c:].max(axis=0)[:, None] if m * c < n else None
+    if tail is not None:
+        gmax = np.concatenate([gmax, tail], axis=1)
+    t = np.partition(gmax, gmax.shape[1] - kk, axis=1)[:, gmax.shape[1] - kk]
+    if floor is not None:
+        t = np.maximum(t, floor)
+    r, e = np.divmod(_flat_nonzero(g >= (t[:, None] if axis == 1
+                                           else t[None, :])), g.shape[1])
+    got = g[r, e]
+    ll, ee = (r, e) if axis == 1 else (e, r)
+    if axis == 0:   # entries by line: a radix sort where the ids allow
+        order = np.argsort(ll.astype(np.uint16) if lines <= 1 << 16 else ll,
+                           kind="stable")
+        ll, ee, got = ll[order], ee[order], got[order]
+    counts = np.bincount(ll, minlength=lines)
+    pos = np.arange(ll.size) - (np.cumsum(counts) - counts)[ll]
+    vals = np.full((lines, max(int(counts.max(initial=0)), kk)), -np.inf,
+                   dtype=g.dtype)
+    ids = np.full(vals.shape, -1, dtype=np.int64)
+    vals[ll, pos] = got
+    ids[ll, pos] = ee
+    return _keep(vals, ids, kk)
+
+
+def _keep(vals: np.ndarray, cols: np.ndarray,
+          kk: int) -> tuple[np.ndarray, np.ndarray]:
+    """The kk largest of each row of ``vals`` (with their ``cols``),
+    descending."""
+    order = np.argsort(-vals, axis=1, kind="stable")[:, :kk]
+    return (np.take_along_axis(vals, order, axis=1),
+            np.take_along_axis(cols, order, axis=1))
+
+
 def brute_knn(vectors: np.ndarray, k: int, block: int = 2048,
               return_sims: bool = False):
-    """Exact cosine kNN via blocked matmul; excludes self. Each block's
-    rows are ranked in slices on a thread a core (numpy's partition and
-    sort release the interpreter; each row's result is its own, so the
-    output does not depend on the slicing)."""
+    """Exact cosine kNN via blocked matmul; excludes self.
+
+    The output is the reference's (``repro.core.graph.brute_knn``: each
+    block of ``block`` rows times every row, each row ranked by
+    ``_top_k_select``), bit for bit, at about half its products. The Gram
+    matrix is symmetric and BLAS gives an entry the same bits whichever
+    of its two rows is on the left and however many columns the product
+    has, so a block is multiplied only with the rows from its own on: its
+    rows see those columns, and the later rows see this block's columns
+    as the product's columns, whose best k + 1 each are carried to them.
+    Each row keeps its k + 1 best entries as they come. Where those are
+    distinct the row has one answer, the reference's; a row with a tie
+    among them is ranked by ``_top_k_select`` on its whole product, as
+    the reference ranks it. The ranking runs in slices on a thread a
+    core (numpy releases the interpreter; each line's result is its own,
+    so the output does not depend on the slicing) while the next block's
+    product runs."""
     n = vectors.shape[0]
-    idx = np.empty((n, k), dtype=np.int32)
-    sims = np.empty((n, k), dtype=np.float32) if return_sims else None
+    kk = k + 1
     vt = vectors.T.copy()
+    best_v = np.full((n, kk), -np.inf, dtype=np.float32)
+    best_i = np.full((n, kk), -1, dtype=np.int64)
+    carry_v, carry_i = best_v.copy(), best_i.copy()   # columns left of a row
     workers = os.cpu_count() or 1
+
+    def rank(part, axis, s, lo, hi, dst_v, dst_i):
+        """The best kk of ``part``'s lines (rows lo..hi of the output;
+        ids from column s on) merged with those carried, into dst."""
+        v, i = _best(part, kk, axis, floor=carry_v[lo:hi, -1])
+        dst_v[lo:hi], dst_i[lo:hi] = _keep(
+            np.concatenate([carry_v[lo:hi], v], axis=1),
+            np.concatenate([carry_i[lo:hi], np.where(i >= 0, i + s, -1)],
+                           axis=1), kk)
+
+    jobs = []
     with ThreadPoolExecutor(workers) as pool:
         for s in range(0, n, block):
             e = min(s + block, n)
-            g = vectors[s:e] @ vt                      # (b, n)
-            g[np.arange(s, e) - s, np.arange(s, e)] = -np.inf
-            step = -(-(e - s) // workers)
-            jobs = [pool.submit(_top_k_rows, g[r:r + step], k,
-                                idx[s + r:s + r + step],
-                                None if sims is None
-                                else sims[s + r:s + r + step])
-                    for r in range(0, e - s, step)]
+            # this block's product runs while the last block is ranked
+            g = vectors[s:e] @ vt[:, s:]               # (b, n - s)
+            g[np.arange(e - s), np.arange(e - s)] = -np.inf
             for j in jobs:
                 j.result()
+            # its rows over columns s..n; its columns e..n, later rows'
+            step = -(-(e - s) // workers)
+            jobs = [pool.submit(rank, g[r:r + step], 1, s, s + r,
+                                min(s + r + step, e), best_v, best_i)
+                    for r in range(0, e - s, step)]
+            cstep = max(-(-(n - e) // workers), 1)
+            jobs += [pool.submit(rank, g[:, c - s:c - s + cstep], 0, s, c,
+                                 min(c + cstep, n), carry_v, carry_i)
+                     for c in range(e, n, cstep)]
+        for j in jobs:
+            j.result()
+    idx = best_i[:, :k].astype(np.int32)
+    sims = best_v[:, :k].copy()
+    redo = np.flatnonzero((best_v[:, 1:] == best_v[:, :-1]).any(axis=1))
+    if n > 1 and n % block == 1:
+        # the reference's last block is one row, which numpy multiplies
+        # as a matrix-vector product, summing in another order
+        redo = redo[redo != n - 1]
+        g = vectors[n - 1:] @ vt
+        g[0, n - 1] = -np.inf
+        _top_k_select(g, k, idx[n - 1:], sims[n - 1:])
+    for c in range(0, redo.size, block):
+        rows = redo[c:c + block]
+        # two rows at least: BLAS gives an entry of any product of two
+        # rows or more the bits of the reference's block product
+        g = vectors[np.append(rows, (rows[0] + 1) % n)] @ vt
+        g = g[:rows.size]
+        g[np.arange(rows.size), rows] = -np.inf
+        t_idx, t_sims = idx[rows], sims[rows]
+        _top_k_select(g, k, t_idx, t_sims)
+        idx[rows], sims[rows] = t_idx, t_sims
     return (idx, sims) if return_sims else idx
 
 
@@ -128,20 +256,30 @@ def _alpha_rng_prune(i: int, nbrs: np.ndarray, vectors: np.ndarray,
 
 def build_alpha_knn(vectors: np.ndarray, k: int = 32, r_max: int = 128,
                     alpha: float = 1.2, block: int = 2048, *,
-                    config=None) -> Graph:
+                    config=None, times: dict | None = None) -> Graph:
     """Full Algorithm 1. ``r_max`` caps only over-degree nodes.
 
     ``config`` (a ``GraphConfig`` or full ``FnsConfig``) supplies every
     knob when given; the loose kwargs remain for direct callers (this is
-    a leaf builder — the engines thread their ``FnsConfig`` through)."""
+    a leaf builder — the engines thread their ``FnsConfig`` through).
+    ``times``, where given, receives each stage's seconds (``knn_s``,
+    ``symmetrize_s``, ``prune_s``) and the rows pruned (``pruned``)."""
     if config is not None:
         g = getattr(config, "graph", config)
         k, r_max, alpha, block = g.graph_k, g.r_max, g.alpha, g.build_block
+    t0 = time.perf_counter()
     knn = brute_knn(vectors, k, block=block)                 # Stage 1
+    t1 = time.perf_counter()
     adj = _symmetrize(knn)                                   # Stage 2
+    t2 = time.perf_counter()
+    pruned = 0
     for i in range(len(adj)):                                # Stage 3
         if adj[i].size > r_max:
             adj[i] = _alpha_rng_prune(i, adj[i], vectors, r_max, alpha)
+            pruned += 1
+    if times is not None:
+        times.update(knn_s=t1 - t0, symmetrize_s=t2 - t1,
+                     prune_s=time.perf_counter() - t2, pruned=pruned)
     r_pad = max(a.size for a in adj)
     n = len(adj)
     neighbors = np.full((n, r_pad), -1, dtype=np.int32)

@@ -8,13 +8,14 @@ import sys
 import numpy as np
 import pytest
 
+from repro.core import graph as ref_graph
 from repro.core.device_atlas import pack_dnf as ref_pack_dnf
 from repro.core.device_atlas import pack_predicates as ref_pack_predicates
 from repro.core.predicate import In, Not, Or, Range, as_dnf
 from repro.data import synth as ref_synth
 from repro_torch.core.atlas import AnchorAtlas
 from repro_torch.core.device_atlas import pack_dnf, pack_predicates
-from repro_torch.core.graph import build_alpha_knn
+from repro_torch.core.graph import _symmetrize, brute_knn, build_alpha_knn
 from repro_torch.data import synth
 from repro_torch.interop import predicate_from_reference
 
@@ -58,6 +59,40 @@ def test_small_graph_bit_identical(small_graph, port_small_ds):
 def test_small_atlas_bit_identical(small_atlas, port_small_ds):
     _assert_atlas_equal(AnchorAtlas.build(port_small_ds, seed=0),
                         small_atlas)
+
+
+# (n, d, block, quantized): several blocks with a short last one, the
+# smoke's d and n_components, a last block of one row (numpy multiplies
+# it as a matrix-vector product), and vectors rounded to a grid of 1/64
+# so that about 60% of the rows tie among their k + 1 best (those the
+# reference's ranking decides)
+GRAPH_SIZES = ((4_500, 256, 2048, False), (2_600, 2048, 512, False),
+               (1_025, 64, 512, False), (1_200, 32, 256, True))
+
+
+@pytest.mark.parametrize("n,d,block,quantized", GRAPH_SIZES)
+def test_graph_build_matches_reference(n, d, block, quantized):
+    """The port's kNN (half the block products, lines ranked through a
+    threshold, tied rows by the reference's ranking) and the whole α-kNN build
+    equal the reference's unchanged ones bit for bit: ``neighbors``,
+    ``degrees``, the kNN ids and their similarities."""
+    v = synth.make_dataset(synth.SynthSpec(n=n, d=d, n_fields=4,
+                                           n_components=350, seed=0)).vectors
+    if quantized:
+        v = np.round(v * 64).astype(np.float32) / 64
+    idx, sims = brute_knn(v, 32, block=block, return_sims=True)
+    want_idx, want_sims = ref_graph.brute_knn(v, 32, block=block,
+                                              return_sims=True)
+    assert np.array_equal(idx, want_idx) and np.array_equal(sims, want_sims)
+    times = {}
+    g = build_alpha_knn(v, k=32, r_max=96, alpha=1.2, block=block,
+                        times=times)
+    want = ref_graph.build_alpha_knn(v, k=32, r_max=96, alpha=1.2,
+                                     block=block)
+    assert np.array_equal(g.neighbors, want.neighbors)
+    assert np.array_equal(g.degrees, want.degrees)
+    assert set(times) == {"knn_s", "symmetrize_s", "prune_s", "pruned"}
+    assert times["pruned"] == sum(a.size > 96 for a in _symmetrize(idx))
 
 
 def test_sel_sweep_index_bit_identical(sel_sweep):
