@@ -7,10 +7,14 @@ Builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
 (logging what ``-Xptxas -v`` printed for each), builds a paper-size index
 on the host (H&M scale: 105,100 x 2048, 24 categorical fields plus two OR
 fields and a timestamp field; 1,344 more rows of the same corpus are held
-out for ingest), holds each of the five kernels against its plain PyTorch
-version on the card at the shapes its path gives it (K2 at the search's
-Q=64 and at Q=256; K3 on one-cluster masks at k=10 and on a random half
-mask at k=32) and also at ragged shapes (K1 in its three forms across its
+out for ingest), holds each of the six kernels against its plain PyTorch
+version on the card at the shapes its path gives it (K2 at Q=64 and at
+Q=256; K3 on one-cluster masks at k=10 and on a random half mask at k=32;
+WR, the walk round ``walk_round``, against ``walk_batch`` on the first
+restart round of the conjunctive Q=64 and Q=256, OR and range batches,
+seeded as the search seeds them, and on the conjunctive Q=64 batch's
+second round: a mean per-lane id overlap of at least 0.98, its exact
+share logged) and also at ragged shapes (K1 in its three forms across its
 tile and query-group edges; K4 across its words and grid, at odd and even
 F, v_cap 32 to 1024 and with every clause inactive; K2, K3 and K5 at
 n % 32 != 0 and d % 4 != 0; K5 with no valid id, no pass bit and every
@@ -18,14 +22,21 @@ pass bit), and then drives fourteen paths, each with the launch counts
 cleared just before it and read just after (the mesh path in segments
 inside two others, the LM mesh path's retrieval inside the rag path,
 the family mesh path inside the lm_families and training paths, the
-family training mesh path inside the training path):
+family training mesh path inside the training path). A search is K1,
+then per restart round K3 (seeds) and WR; every ``dispatch`` of an
+engine on the card runs under ``torch.cuda.set_sync_debug_mode("error")``
+(a host sync inside it raises) and every ``collect`` must report one
+sync (``SyncChecked``):
 
 * the kernel/plain-version parity gate (``kernels.parity.parity_gate``),
-  the path of K4 ``filter_eval`` and K5 ``fiber_expand``;
+  the path of K2 ``fiber_expand_walk``, K4 ``filter_eval`` and K5
+  ``fiber_expand``;
 * the fused filtered search (``BatchedEngine(device="cuda").search``) on
   conjunctive, OR and range batches: every id passes its predicate, no
-  duplicates, at most k per query, and the card's answers agree with the
-  host engine's on the same batches;
+  duplicates, at most k per query, the stream still busy when the
+  conjunctive Q=64 batch's ``dispatch`` returns behind ~0.2 s of queued
+  device work (whether it is without that is logged), and the card's
+  answers agree with the host engine's on the same batches;
 * the live index: a capacity-slab engine over the same index ingests the
   held-out rows in batches of 64, 256 and 1,024 with deferred repair, the
   maintenance loop drains the backlog, a batch of rows is deleted, and
@@ -43,21 +54,23 @@ family training mesh path inside the training path):
   index, capacity for the held-out rows): ``query_batch`` on the
   conjunctive Q=64, OR and range batches (held to the main path's ids),
   on 37 queries and on one (padded to their buckets), the Q=64 batch one
-  query at a time through ``ServePipeline`` (held to ``query_batch``) and
-  16 sequential queries on the host (``query``, the stall regimes by
-  selectivity); then a durable service ingests 256 held-out rows in
-  journaled batches of 64, deletes 128 rows, snapshots, ingests 64 more
-  into the journal only, and ``RetrievalService.recover`` brings it back
-  (equal staleness, the live service's ids, every surviving inserted row
-  findable, no deleted row returned), after which the parity gate runs on
-  the card;
+  query at a time through ``ServePipeline`` (held to ``query_batch``), the
+  conjunctive Q=256 batch in batches of 16 through the pipeline and one
+  ``query_batch`` after another (ms per query each way, in turns), the
+  pipeline's ``_smoke`` and 16 sequential queries on the host (``query``,
+  the stall regimes by selectivity); then a durable service ingests 256
+  held-out rows in journaled batches of 64, deletes 128 rows, snapshots,
+  ingests 64 more into the journal only, and ``RetrievalService.recover``
+  brings it back (equal staleness, the live service's ids, every
+  surviving inserted row findable, no deleted row returned), after which
+  the parity gate runs on the card;
 * the search and serving over a device mesh (``mesh``, in segments
   inside the sharded and serving paths, on their index and snapshot):
   the sharded path's index on a 1D mesh of four cells and on a 4 x 2
   data x query mesh, every cell on the one card (``devices=[cuda:0] *
   n``), the conjunctive Q=64, OR and range batches with each first call
-  of K1-K3 held to its plain version on a cell, ids, walks and hops
-  equal to reference mode's, one dispatch a batch, the conjunctive
+  of K1, K3 and WR held to its plain version on a cell, ids, walks and
+  hops equal to reference mode's, one dispatch a batch, the conjunctive
   batch timed beside reference mode in turns; and the serving path's
   durable snapshot recovered onto a two-cell mesh
   (``RetrievalService.recover(mesh=)``: an empty slab padded on, the
@@ -70,18 +83,18 @@ family training mesh path inside the training path):
   fields of 8 codes are attached and the index is built on the host and
   served by ``RetrievalService(device="cuda")``;
   ``EncodedRetriever.retrieve_batch`` answers 64 prompts, one conjunctive
-  predicate each (selectivities about 0.25 / 0.05 / 0.01), through K1-K3
-  at d = 576 (its first calls held to their plain versions and K2/K3
-  timed on them), with the ids of ``query_batch`` on ``embed_tokens``,
-  every id passing its predicate, and recall against exact filtered
-  top-k; ``retrieve`` answers 8 prompts on the host; 256 card embeddings
+  predicate each (selectivities about 0.25 / 0.05 / 0.01), through
+  K1/K3/WR at d = 576 (its first calls held to their plain versions and
+  WR, K2 and K3 timed on them), with the ids of ``query_batch`` on
+  ``embed_tokens``, every id passing its predicate, and recall against
+  exact filtered top-k; ``retrieve`` answers 8 prompts on the host; 256 card embeddings
   are held to the port's on the host with the same weights (cosine);
   ``ServeEngine.generate`` decodes 16 tokens greedily for 4 prompts of
   32, the same tokens in two calls, the first the card prefill's argmax;
 * the LM's serving over a device mesh (``lm_mesh``), every cell on the
   card: the rag path's 64 prompts encoded by SmolLM-135M on a 1 x 3 mesh
   (its 9 / 3 heads, d_ff and padded vocab split three ways) through
-  ``EncodedRetriever.retrieve_batch`` (K1-K3) for the same service, its
+  ``EncodedRetriever.retrieve_batch`` (K1/K3/WR) for the same service, its
   bf16 embeddings at cosine >= 0.999 to the meshless encoder's and, both
   encoders in fp32, its ids overlapping the meshless retriever's by at
   least 0.98; llama3.2-1b at its
@@ -113,8 +126,9 @@ family training mesh path inside the training path):
   the same weights in fp32 (dbrx at one layer; bf16 and its routing
   agreement logged). Hymba then encodes 16,384 documents of 64 tokens on
   the card, served by ``RetrievalService(device="cuda")``, and
-  ``EncodedRetriever.retrieve_batch`` answers 64 prompts through K1-K3
-  at d = 1,600 (first calls held to their plain versions, K2/K3 timed),
+  ``EncodedRetriever.retrieve_batch`` answers 64 prompts through K1, K3
+  and walk_round at d = 1,600 (first calls held to their plain versions,
+  walk_round, K2 and K3 timed),
   with the ids of ``query_batch`` on ``embed_tokens``, every id passing
   its predicate, recall against exact filtered top-k;
 * the hybrid, ssm and audio families over a device mesh
@@ -131,10 +145,10 @@ family training mesh path inside the training path):
   on the same weights in bf16 and fp32, every fp32 decode step to the
   meshless step, ms a prefill, tokens/s and kernels a decode step beside
   the meshless run's; then hymba's 64 retrieval prompts encoded whole on
-  2 x 4 through ``EncodedRetriever.retrieve_batch`` (K1-K3) for the
+  2 x 4 through ``EncodedRetriever.retrieve_batch`` (K1/K3/WR) for the
   lm_families service, its fp32 ids overlapping the meshless
   retriever's by at least 0.98;
-* training (``train_path``; it launches none of the five kernels):
+* training (``train_path``; it launches none of the six kernels):
   SmolLM-135M whole as ``launch/train.py --full`` trains it (batch 8 x
   128 tokens, lr 3e-3): step 0's loss and gradients on the card held to
   the host's from the same weights and batch in fp32 and bf16, 30 steps
@@ -151,7 +165,7 @@ family training mesh path inside the training path):
   token losses held to fp32 on the tokens whose experts agree;
 * the hybrid, ssm and audio families trained over a device mesh
   (``family_train_mesh``, segments inside the training path on its
-  weights; it launches none of the five kernels), every cell on the
+  weights; it launches none of the six kernels), every cell on the
   card, 2 x 4, tp, fp32: hymba-1.5b and rwkv6-3b at full width and 2
   layers, whisper-small's first 4 + 4 layers (8 x 64 tokens; whisper's
   decoder 8 x 64 over 256 frames): the step-1 loss and every gradient
@@ -161,7 +175,7 @@ family training mesh path inside the training path):
   ``make_train_step`` each way, the mesh's with ZeRO-1 (ms and kernels a
   step, the mesh gradients' peak memory);
 * training over a device mesh (``train_mesh``, a segment of its own
-  with its own counts; it launches none of the five kernels), every
+  with its own counts; it launches none of the six kernels), every
   cell on the card: llama3.2-1b whole on 2 x 4 (tp, ZeRO-1) in fp32,
   its step-1 loss and every gradient leaf held to the meshless step's,
   the update of the same gradients held to the meshless update, then
@@ -202,8 +216,8 @@ family training mesh path inside the training path):
   defaults on cuda:0 (SmolLM-135M whole encodes 2,048 documents of 32
   tokens, the index is built on the host and served on the card; 32
   queries under one predicate through ``retrieve`` and, after a warm-up,
-  ``retrieve_batch``, whose first K1-K3 calls are held to their plain
-  versions), every id passing the predicate and the card's batched ids
+  ``retrieve_batch``, whose first K1, K3 and WR calls are held to their
+  plain versions), every id passing the predicate and the card's batched ids
   overlapping by at least 0.98 those of a ``device="cpu"`` service over
   the same embeddings (recall@10, ms a query and restarts logged); then
   ``examples/torch_train_lm.py --full --steps 30`` into a temporary
@@ -259,6 +273,10 @@ N_FIELDS = 24
 K = 10              # results per query
 Q_KERNEL = 256      # kernel-phase batch
 SPIN_CYCLES = 2_000_000   # ~1 ms of spinning ahead of each timed run
+# ~0.2 s of spinning queued ahead of the dispatch whose return is checked:
+# longer than a batch's host enqueue, so the stream is still busy at the
+# return unless the dispatch waited for the device
+DISPATCH_SPIN_CYCLES = 400_000_000
 
 
 class SmokeFailure(Exception):
@@ -439,6 +457,123 @@ def check_expand(label, got, want) -> float:
     err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
     check(err <= 1e-4, f"{label}: max abs err {err} > 1e-4")
     return err
+
+
+ROUND_OVERLAP = 0.98   # walk_round vs walk_batch: mean per-lane id overlap
+ROUND_EQUAL = 0.9      # ... least share of lanes with equal hops and term
+ROUND_ERR = 1e-5       # ... most abs err of res_v where the ids agree
+
+
+def check_round(label, got, want) -> dict:
+    """walk_round against its plain version (walk_batch) on the same card
+    inputs: a mean per-lane id-set overlap of the found results of at
+    least ROUND_OVERLAP (the dots and the drift sum add in another order,
+    so a near tie can turn a walk), at least a share ROUND_EQUAL of lanes
+    with equal hops and equal termination codes, and res_v within
+    ROUND_ERR wherever both hold the same id in the same slot (res_v is
+    carried into the next round and decides early termination there).
+    Returns these beside the exact share and the share of lanes with
+    equal visited bits."""
+    import numpy as np
+    from repro_torch.core.batched.engine import INF
+    gv, gi = got["res_v"].cpu().numpy(), got["res_i"].cpu().numpy()
+    wv, wi = want["res_v"].cpu().numpy(), want["res_i"].cpu().numpy()
+    a = [i[v < INF / 2] for v, i in zip(gv, gi)]
+    b = [i[v < INF / 2] for v, i in zip(wv, wi)]
+    mean = overlap(a, b)
+    same = (wv < INF / 2) & (gi == wi)
+    rec = dict(
+        Q=len(a), mean_overlap=mean,
+        exact_frac=float(np.mean([np.array_equal(x, y)
+                                  for x, y in zip(a, b)])),
+        hops_equal_frac=float((got["hops"] == want["hops"]).float().mean()),
+        term_equal_frac=float((got["term"] == want["term"]).float().mean()),
+        visited_equal_frac=float((got["visited_bm"] == want["visited_bm"])
+                                 .all(dim=1).float().mean()),
+        max_abs_err=float(np.abs(gv - wv)[same].max()) if same.any()
+        else 0.0,
+        mean_hops=float(want["hops"].float().mean()))
+    check(mean >= ROUND_OVERLAP, f"{label}: kernel vs plain id-set "
+                                 f"overlap {mean:.4f} < {ROUND_OVERLAP}")
+    for key in ("hops_equal_frac", "term_equal_frac"):
+        check(rec[key] >= ROUND_EQUAL,
+              f"{label}: {key} {rec[key]:.4f} < {ROUND_EQUAL}")
+    check(rec["max_abs_err"] <= ROUND_ERR, f"{label}: res_v max abs err "
+          f"{rec['max_abs_err']:.3g} > {ROUND_ERR}")
+    return rec
+
+
+def round_work(args, plain) -> dict:
+    """walk_round's bound on these inputs: the queries, seeds and carried
+    results read once; each distinct corpus row some lane dots read once
+    (a lane dots its seeds and each neighbour that is new or passes, the
+    rows of its ``visited_bm``, so the rows are that bitmap ORed over
+    lanes); each distinct adjacency row some lane expands read once
+    (``walk_batch``'s ``expanded``); the pass and visited words probed
+    not counted; the results, counts and visited bitmap written. 2·d
+    operations per (lane, row) dot: each lane's valid seeds and
+    ``walk_batch``'s ``dotted``."""
+    from repro_torch.core.batched.bitmap import unpack_bits
+    vectors, adjacency, pass_bm, q_vecs, seeds, res_v, _, p = args
+    Q, d = q_vecs.shape
+    rows = int(unpack_bits(plain["visited_bm"], vectors.shape[0])
+               .any(dim=0).sum())
+    adj_rows = int(plain["expanded"].sum())
+    dots = int((seeds >= 0).sum()) + int(plain["dotted"].sum())
+    n_bytes = (4 * (q_vecs.numel() + seeds.numel()) + 8 * res_v.numel()
+               + 4 * d * rows + 4 * adjacency.shape[1] * adj_rows
+               + 8 * res_v.numel() + 12 * Q + 4 * pass_bm.numel())
+    b_ms, b_by = bound(n_bytes, 2.0 * d * dots)
+    return dict(bound_ms=b_ms, bound_by=b_by, rows_dotted=dots,
+                distinct_rows=rows, distinct_adj_rows=adj_rows,
+                total_hops=int(plain["hops"].sum()), mb=n_bytes / 1e6)
+
+
+def round_args(datlas, vectors, adjacency, q_vecs, tables, pass_bm, p,
+               processed=None, res=None):
+    """walk_round's arguments for one restart round as ``atlas_round``
+    builds them (seeds by the topk backend on the card, from ``res`` or
+    empty results), and the clusters the round used."""
+    import torch
+    from repro_torch.core.batched.bitmap import popcount, unpack_bits
+    from repro_torch.core.batched.engine import INF
+    Q = q_vecs.shape[0]
+    passes = unpack_bits(pass_bm, vectors.shape[0])
+    if processed is None:
+        processed = torch.zeros((Q, datlas.n_clusters), dtype=torch.bool,
+                                device=q_vecs.device)
+    gate = processed | ~(popcount(pass_bm) > 0)[:, None]
+    seeds, used = datlas.select_anchors_batch(
+        q_vecs, tables, gate, vectors, passes, n_seeds=p.n_seeds,
+        c_max=p.c_max, backend="topk", disjunct_quota=p.disjunct_quota)
+    if res is None:
+        res = (torch.full((Q, p.k), INF, device=q_vecs.device),
+               torch.full((Q, p.k), -1, dtype=torch.int32,
+                          device=q_vecs.device))
+    return ((vectors, adjacency, pass_bm, q_vecs, seeds.contiguous(), *res,
+             p), processed | used)
+
+
+def round_case(label, args, flush=None) -> dict:
+    """walk_round and walk_batch on one round's arguments: held by
+    ``check_round``, each timed where ``flush`` is given (the kernel 20
+    runs, the plain loop 3), with the bound (``round_work``)."""
+    import torch
+    from repro_torch.core.batched.engine import walk_batch
+    from repro_torch.kernels import walk_round as wr
+
+    def plain():
+        return walk_batch(*args[:5], args[7], init_results=args[5:7])
+
+    want = plain()
+    rec = check_round(label, wr.walk_round(*args), want)
+    torch.cuda.synchronize()
+    rec.update(round_work(args, want))
+    if flush is not None:
+        rec.update(ms=cuda_ms(lambda: wr.walk_round(*args), 20, flush),
+                   plain_ms=cuda_ms(plain, 3, flush), library_ms=None)
+        rec = ratios(rec)
+    return rec
 
 
 def k1_meta(n, vocab, gen, dev, unpopulated=0.03):
@@ -744,10 +879,11 @@ def kernel_phases(ds, index, batches, dev, flush, log):
         "dnf": (batches["or_q64"] * 4)[:Q_KERNEL],
         "bounds": (batches["range_q64"] * 4)[:Q_KERNEL],
     }
-    k1, bitmaps = {}, {}
+    k1, bitmaps, packed = {}, {}, {}
     for form, qs in forms.items():
-        _, fields, allowed, bounds = pack_query_batch(
-            qs, v_cap=v_cap, vocab_sizes=vocab, device=dev)
+        packed[form] = pack_query_batch(qs, v_cap=v_cap, vocab_sizes=vocab,
+                                        device=dev)
+        _, fields, allowed, bounds = packed[form]
         check((bounds is not None) == (form == "bounds"), f"K1 {form} form")
         nd = table_n_disj(fields) if fields.ndim == 3 else None
         got = filter_eval.filter_eval_batch(meta, fields, allowed, nd, bounds)
@@ -921,14 +1057,54 @@ def kernel_phases(ds, index, batches, dev, flush, log):
         library_ms=cuda_ms(k5_library, 20, flush)))
     log("K5", R=R, valid_ids=n_valid, passing_ids=n_pass,
         distinct_passing_rows=pass_rows, **records["fiber_expand"])
+
+    # walk_round: the first restart round of the search's batches, seeded
+    # as the search seeds them; conj Q=64 also its second round, from the
+    # first round's results
+    from repro_torch.core.config import WalkConfig
+    from repro_torch.core.device_atlas import DeviceAtlas
+    from repro_torch.kernels import walk_round as wr
+    p = WalkConfig(k=K)
+    datlas = DeviceAtlas.from_atlas(index.atlas, device=dev)
+    check(datlas.v_cap == v_cap, "walk_round: the atlas's v_cap")
+    rounds = {}
+    for label, form, q_n in (("conj_q64", "conj", 64),
+                             ("conj_q256", "conj", Q_KERNEL),
+                             ("or_q64", "dnf", 64),
+                             ("range_q64", "bounds", 64)):
+        qv, *tables = (None if x is None else x[:q_n].contiguous()
+                       for x in packed[form])
+        tables = tuple(x for x in tables if x is not None)
+        args, used = round_args(datlas, vectors, adjacency, qv, tables,
+                                bitmaps[form][:q_n].contiguous(), p)
+        rounds[label] = round_case(f"walk_round {label}", args, flush)
+        if label == "conj_q64":
+            first = wr.walk_round(*args)
+            args2, _ = round_args(datlas, vectors, adjacency, qv, tables,
+                                  args[2], p, processed=used,
+                                  res=(first["res_v"], first["res_i"]))
+            rounds["conj_q64_round2"] = round_case(
+                "walk_round conj_q64 round 2", args2, flush)
+    m = rounds["conj_q64"]
+    records["walk_round"] = ratios(dict(
+        name="walk_round", route="cuda", ok=True,
+        source="src/repro_torch/kernels/csrc/walk_round.cu",
+        replaces="src/repro/core/batched/engine.py:262", launches=0,
+        max_abs_err=max(r["max_abs_err"] for r in rounds.values()),
+        ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+        bound_by=m["bound_by"], library_ms=None, shapes=rounds))
+    log("walk_round", **{f"{lbl}_{k}": v for lbl, r in rounds.items()
+                         for k, v in r.items()})
+    del datlas
     ragged_checks(dev, log)
     return records
 
 
-# the kernels each driven path must launch
-SEARCH_KERNELS = ("filter_eval_batch", "fiber_expand_walk",
-                  "masked_cosine_topk")
-GATE_KERNELS = ("filter_eval", "fiber_expand")
+# the kernels each driven path must launch: a search K1, K3 and the walk
+# round; the parity gate K1-K5 (K2, K4 and K5 only there)
+SEARCH_KERNELS = ("filter_eval_batch", "walk_round", "masked_cosine_topk")
+GATE_KERNELS = ("fiber_expand_walk", "filter_eval", "fiber_expand")
+PARITY_KERNELS = ("filter_eval_batch", "masked_cosine_topk") + GATE_KERNELS
 
 
 def path_launches(path: str, kernels, log) -> dict:
@@ -966,7 +1142,7 @@ def parity_path(log) -> dict:
     t = time.time()
     parity_gate("cuda")
     log("parity_gate", ok=True, s=time.time() - t)
-    return path_launches("parity_gate", SEARCH_KERNELS + GATE_KERNELS, log)
+    return path_launches("parity_gate", PARITY_KERNELS, log)
 
 
 def ground_truth(ds, queries, dev):
@@ -1004,17 +1180,42 @@ def main_path(ds, index, batches, dev, card, log, profile_into=None):
         eng.search(qs)                      # warm-up (allocator, cuBLAS)
         torch.cuda.synchronize()
         t = time.time()
-        ids, stats = eng.search(qs)
+        token = eng.dispatch(qs)
+        dispatch_ms = (time.time() - t) * 1e3
+        # the device still searching when dispatch returns: nothing in it
+        # waited for the device
+        busy = not torch.cuda.current_stream().query()
+        ids, stats = eng.collect(token)
         ms = (time.time() - t) * 1e3
         gt, masks = gts[name]
         check_results(name, ids, masks)
         rec = float(np.mean([recall_at_k(r, g) for r, g in zip(ids, gt)]))
         results[name] = dict(ids=ids, stats=stats, ms=ms, recall=rec)
         log("search", batch=name, Q=len(qs), ms_per_batch=ms,
+            dispatch_return_ms=dispatch_ms, busy_at_return=busy,
             qps=len(qs) / ms * 1e3, recall_at_10=rec,
             mean_walks=float(stats["walks"].mean()),
             mean_hops=float(stats["hops"].mean()), syncs=stats["syncs"],
-            card=card)
+            rounds=stats["rounds"], card=card)
+    # dispatch returns before the device is done: with DISPATCH_SPIN of
+    # device work queued ahead, a dispatch that waited for the device would
+    # return only after it (and find the stream idle)
+    qs = batches["conj_q64"]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(DISPATCH_SPIN_CYCLES)
+    t = time.time()
+    token = eng.dispatch(qs)
+    dispatch_ms = (time.time() - t) * 1e3
+    busy = not torch.cuda.current_stream().query()
+    ids, _ = eng.collect(token)
+    log("search_async", batch="conj_q64", busy_at_return=busy,
+        dispatch_return_ms=dispatch_ms,
+        spin_then_collect_ms=(time.time() - t) * 1e3)
+    check(busy, f"search conj_q64: the stream was idle when dispatch "
+                f"returned ({dispatch_ms:.2f} ms)")
+    check(all(np.array_equal(a, b) for a, b in
+              zip(ids, results["conj_q64"]["ids"])),
+          "search conj_q64: ids differ between two dispatches")
     launches = path_launches("search", SEARCH_KERNELS, log)
     if profile_into is not None:
         from torch.profiler import ProfilerActivity, profile
@@ -1250,8 +1451,9 @@ def overlap(a_ids, b_ids) -> float:
 
 
 class FirstCalls:
-    """While open, ``kernels.ops``' K1-K3 entries keep the arguments of
-    their first call (tensors cloned) and pass every call through."""
+    """While open, ``kernels.ops``' K1, K3 and WR entries keep the
+    arguments of their first call (tensors cloned) and pass every call
+    through."""
 
     def __init__(self, names=None):
         self.names = names or SEARCH_KERNELS
@@ -1281,16 +1483,16 @@ class FirstCalls:
 
 
 def check_first_calls(seen, label, log) -> None:
-    """K1-K3 on the card tensors a path's search gave them (``FirstCalls``
-    of one batch: on the sharded path the shard searched first), each
-    against its plain version with the kernel phases' tolerances: K1
-    bit-exact, K2 as ``check_walk``, K3 as ``check_topk``. The launches
-    these comparisons make are taken back out of the path's counts. The
-    record's phase is the label's path (``sharded/conj_q64`` logs
-    ``sharded_kernels``)."""
+    """K1, K3 and walk_round on the card tensors a path's search gave them
+    (``FirstCalls`` of one batch: on the sharded path the shard searched
+    first), each against its plain version with the kernel phases'
+    tolerances: K1 bit-exact, K3 as ``check_topk``, walk_round as
+    ``check_round``. The launches these comparisons make are taken back
+    out of the path's counts. The record's phase is the label's path
+    (``sharded/conj_q64`` logs ``sharded_kernels``)."""
     import torch
     from repro_torch.core.batched.bitmap import popcount, unpack_bits
-    from repro_torch.kernels import build, fiber_expand, filter_eval, ref
+    from repro_torch.kernels import build, filter_eval, ref
     from repro_torch.kernels import masked_cosine_topk as mct
     saved = dict(build.LAUNCHES)
     rec = {}
@@ -1302,13 +1504,11 @@ def check_first_calls(seen, label, log) -> None:
         rec.update(k1_n=a[0].shape[0], k1_tables=tuple(a[1].shape),
                    k1_bounds=a[4] is not None,
                    k1_pass_bits=int(popcount(got).sum()))
-    if "fiber_expand_walk" in seen:
-        q, corpus, ids, bm = seen["fiber_expand_walk"]
-        rec.update(k2_n=corpus.shape[0], k2_ids=tuple(ids.shape),
-                   k2_max_abs_err=check_walk(
-                       f"{label} K2",
-                       fiber_expand.fiber_expand_walk(q, corpus, ids, bm),
-                       ref.fiber_expand_walk(q, corpus, ids, bm)))
+    if "walk_round" in seen:
+        args = seen["walk_round"]
+        rec.update({f"round_{k}": v for k, v in round_case(
+            f"{label} walk_round", args).items()},
+            round_n=args[0].shape[0], round_d=args[0].shape[1])
     if "masked_cosine_topk" in seen:
         q, corpus, bm, k = seen["masked_cosine_topk"]
         mask = unpack_bits(bm, corpus.shape[0])
@@ -1356,13 +1556,58 @@ class Segments:
         return self.launches
 
 
+class SyncChecked:
+    """While open, every ``dispatch`` of a ``BatchedEngine`` or
+    ``ShardedEngine`` on the card runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, so a host sync inside it
+    raises, and every ``collect`` of one must report ``stats["syncs"]``
+    1: the copy of the results is the batch's one host read."""
+
+    def __init__(self):
+        self.dispatches = self.collects = 0
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core.batched.engine import BatchedEngine
+        from repro_torch.core.batched.sharded import ShardedEngine
+        self.real = [(cls, cls.dispatch, cls.collect)
+                     for cls in (BatchedEngine, ShardedEngine)]
+        for cls, real_dispatch, real_collect in self.real:
+            def dispatch(eng, *args, _real=real_dispatch, **kw):
+                if eng.device.type != "cuda":
+                    return _real(eng, *args, **kw)
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = _real(eng, *args, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                self.dispatches += 1
+                return out
+
+            def collect(eng, token, _real=real_collect):
+                ids, stats = _real(eng, token)
+                if eng.device.type == "cuda":
+                    self.collects += 1
+                    check(stats["syncs"] == 1, f"a batch took "
+                          f"{stats['syncs']} host syncs, not 1")
+                return ids, stats
+
+            cls.dispatch, cls.collect = dispatch, collect
+        return self
+
+    def __exit__(self, *exc):
+        for cls, real_dispatch, real_collect in self.real:
+            cls.dispatch, cls.collect = real_dispatch, real_collect
+
+
 def mesh_search(sidx, cfg, ref_eng, batches, ref_out, dev, card,
                 log) -> None:
     """The mesh path's search segment: the sharded path's index on a 1D
     mesh of N_SHARDS cells, all on the one card, answers the conjunctive
     Q=64, OR and range batches with the ids, walks and hops of reference
     mode (``ref_out``) exactly, one dispatch a batch; each batch's first
-    calls of K1-K3 (on shard 0's cell) are held to their plain versions.
+    calls of K1, K3 and WR (on shard 0's cell) are held to their plain
+    versions.
     Reference mode (``ref_eng``) runs the conjunctive batch again right
     after the mesh, for a time taken beside the mesh's; the batch then
     runs once more, exactly as well, on an N_SHARDS x 2 data x query mesh
@@ -1667,7 +1912,7 @@ def serve_path(ds, index, held, batches, card_res, dev, card, log,
     inserted row findable, no deleted row returned; then the parity gate
     runs on the card, as a recovery does. The mesh path's serving segment
     (``mesh_recover``) recovers the same root onto a mesh. Returns the
-    path's launch counts (K1-K5)."""
+    path's launch counts (K1-K5 and WR)."""
     import shutil
     import tempfile
 
@@ -1682,6 +1927,7 @@ def serve_path(ds, index, held, batches, card_res, dev, card, log,
     from repro_torch.kernels import build
     from repro_torch.kernels.parity import parity_gate
     from repro_torch.serve.pipeline import ServePipeline
+    from repro_torch.serve.pipeline import _smoke as pipeline_smoke
     from repro_torch.serve.retrieval import RetrievalService
 
     cap = N_PAPER + N_INSERT
@@ -1709,7 +1955,8 @@ def serve_path(ds, index, held, batches, card_res, dev, card, log,
     served, checked = {}, set()
 
     def held_to_plain(label, fn):
-        # one call whose K1-K3 calls are rerun against the plain versions
+        # one call whose K1, K3 and WR calls are rerun against the plain
+        # versions
         with FirstCalls() as seen:
             out = fn()
         torch.cuda.synchronize()
@@ -1790,6 +2037,47 @@ def serve_path(ds, index, held, batches, card_res, dev, card, log,
         exact_match_frac=exact_share(p_ids, served["conj_q64"]), card=card)
     check(mean >= 0.98, f"serve pipeline vs query_batch id-set overlap "
                         f"{mean:.4f} < 0.98")
+
+    # the conjunctive Q=256 batch in batches of 16: through the pipeline
+    # (batch N+1 formed and packed while batch N is on the card) and one
+    # query_batch after another, in turns
+    conj = batches["conj_q256"]
+    step = cfg.serve.queue_max_batch
+
+    def serial():
+        return [i for lo in range(0, len(conj), step)
+                for i in batch(svc, conj[lo:lo + step])[0]]
+
+    def piped():
+        pipe = ServePipeline(svc)
+        tks = [pipe.submit(q.vector, q.predicate) for q in conj]
+        while not all(tk.done for tk in tks):
+            if pipe.pump() == 0 and len(pipe.queue) == 0:
+                pipe.drain()
+        check(pipe.batches == len(conj) // step, "serve/overlap: batches")
+        return [tk.ids for tk in tks]
+
+    turns = {"serial": [], "pipeline": []}
+    outs = {}
+    for name, fn in (("serial", serial), ("pipeline", piped),
+                     ("pipeline", piped), ("serial", serial)):
+        torch.cuda.synchronize()
+        t = time.time()
+        outs[name] = fn()
+        torch.cuda.synchronize()
+        turns[name].append((time.time() - t) * 1e3 / len(conj))
+    mean = overlap(outs["pipeline"], outs["serial"])
+    log("serve_pipeline_overlap", Q=len(conj), batch=step,
+        serial_ms_per_query=turns["serial"],
+        pipeline_ms_per_query=turns["pipeline"],
+        overlap_with_serial=mean,
+        exact_match_frac=exact_share(outs["pipeline"], outs["serial"]),
+        card=card)
+    check(mean >= 0.98, f"serve pipeline vs serial id-set overlap "
+                        f"{mean:.4f} < 0.98")
+    t = time.time()
+    pipeline_smoke()
+    log("serve_pipeline_smoke", ok=True, s=time.time() - t)
 
     # the sequential path (host numpy): 16 range queries across the sels
     rq = batches["range_q64"]
@@ -1909,17 +2197,23 @@ def serve_path(ds, index, held, batches, card_res, dev, card, log,
 
 
 def time_first_calls(seen, label, dev, log) -> dict:
-    """K2 and K3 timed on the arguments of a path's first calls
-    (``FirstCalls``), beside their plain versions, one PyTorch call each
-    and their bound on these inputs (``k2_work``, ``k3_work``). The
-    launches made here are taken back out of the path's counts."""
+    """walk_round, K2 and K3 timed on the arguments of a path's first
+    calls (``FirstCalls``), beside their plain versions, one PyTorch call
+    each where there is one and their bound on these inputs
+    (``round_work``, ``k2_work``, ``k3_work``). K2, which the search no
+    longer calls, is timed on the first hop the round's lanes take: each
+    lane's first seed's neighbours. The launches made here are taken back
+    out of the path's counts."""
     import torch
     from repro_torch.core.batched.bitmap import unpack_bits
     from repro_torch.kernels import build, fiber_expand, ref
     from repro_torch.kernels import masked_cosine_topk as mct
     saved = dict(build.LAUNCHES)
     flush = torch.empty(64 << 20, dtype=torch.int8, device=dev)
-    q, corpus, ids, bm = seen["fiber_expand_walk"]
+    args = seen["walk_round"]
+    rnd = round_case(f"{label} walk_round", args, flush)
+    corpus, adjacency, bm, q, seeds = args[:5]
+    ids = adjacency[seeds[:, 0].clamp(min=0).long()].contiguous()
     (Q, R), d = ids.shape, corpus.shape[1]
     safe = ids.clamp(min=0).long().flatten()
 
@@ -1927,12 +2221,15 @@ def time_first_calls(seen, label, dev, log) -> dict:
         rows = corpus.index_select(0, safe).view(Q, R, d)
         return torch.bmm(rows, q.unsqueeze(2))
 
+    err = check_walk(f"{label} K2", fiber_expand.fiber_expand_walk(
+        q, corpus, ids, bm), ref.fiber_expand_walk(q, corpus, ids, bm))
     k2 = ratios(dict(
         ms=cuda_ms(lambda: fiber_expand.fiber_expand_walk(q, corpus, ids, bm),
                    50, flush),
         plain_ms=cuda_ms(lambda: ref.fiber_expand_walk(q, corpus, ids, bm),
                          20, flush),
-        library_ms=cuda_ms(k2_library, 20, flush), **k2_work(q, ids, d)))
+        library_ms=cuda_ms(k2_library, 20, flush), max_abs_err=err,
+        **k2_work(q, ids, d)))
     q3, corpus3, bm3, k = seen["masked_cosine_topk"]
     mask = unpack_bits(bm3, corpus3.shape[0])
 
@@ -1950,7 +2247,8 @@ def time_first_calls(seen, label, dev, log) -> dict:
     torch.cuda.synchronize()
     build.LAUNCHES.clear()
     build.LAUNCHES.update(saved)
-    rec = {"K2": dict(Q=Q, R=R, n=corpus.shape[0], d=d, **k2),
+    rec = {"walk_round": dict(n=corpus.shape[0], d=d, **rnd),
+           "K2": dict(Q=Q, R=R, n=corpus.shape[0], d=d, **k2),
            "K3": dict(Q=q3.shape[0], n=corpus3.shape[0], d=d, **k3)}
     log(label.split("/")[0] + "_kernel_times", batch=label,
         **{f"{name}_{key}": v for name, r in rec.items()
@@ -2050,9 +2348,10 @@ def serve_corpus(label, vectors, rng, dev, card, log):
 
 
 def first_batch(label, retr, prompts, preds, dev, log) -> dict:
-    """``retr.retrieve_batch`` once as a warm-up: its first K1-K3 calls
-    held to their plain versions (``check_first_calls``) and K2/K3 timed
-    on them (``time_first_calls``, whose record it returns)."""
+    """``retr.retrieve_batch`` once as a warm-up: its first K1, K3 and
+    walk_round calls held to their plain versions (``check_first_calls``)
+    and walk_round, K2 and K3 timed on them (``time_first_calls``, whose
+    record it returns)."""
     import torch
     with FirstCalls() as seen:
         retr.retrieve_batch(prompts, preds)
@@ -2072,8 +2371,9 @@ def rag_path(dev, card, log, lm_mesh) -> dict:
     the index built on the host at the ``FnsConfig`` defaults and served
     by ``RetrievalService(device="cuda")`` at k=10; then
     ``EncodedRetriever.retrieve_batch`` on RAG_Q prompts (one conjunctive
-    predicate each, selectivities ≈ 0.25 / 0.05 / 0.01; its first K1-K3
-    calls held to their plain versions and K2/K3 timed on them), timed
+    predicate each, selectivities ≈ 0.25 / 0.05 / 0.01; its first K1, K3
+    and walk_round calls held to their plain versions and walk_round, K2
+    and K3 timed on them), timed
     RAG_TIMED times in turns with ``embed_tokens`` + ``query_batch`` of
     the same prompts (medians logged), whose ids it must equal in every
     turn; the ids must pass their predicates and be scored against exact filtered
@@ -2521,8 +2821,9 @@ def hymba_retrieval(cfg, params, dev, card, log, fmesh=None) -> None:
     HYMBA_DOCS documents encoded on the card, RAG_FIELDS fields, served
     at k=K (``serve_corpus``); ``EncodedRetriever.retrieve_batch`` on
     RAG_Q prompts with the rag path's three selectivities, its first
-    K1-K3 calls held to their plain versions and K2/K3 timed on them
-    (``first_batch``), its ids equal to ``embed_tokens`` +
+    K1, K3 and walk_round calls held to their plain versions and
+    walk_round, K2 and K3 timed on them (``first_batch``), its ids equal
+    to ``embed_tokens`` +
     ``query_batch``, passing their predicates, recall@K against exact
     filtered top-k; then, in ``fmesh``, the prompts encoded over a mesh
     for the same service (``hymba_mesh_retrieval``)."""
@@ -2965,7 +3266,7 @@ def rag_mesh(cfg, params, svc, prompts, preds, ids, dev, card, log) -> None:
     """The rag path's prompts encoded on a 1 x 3 mesh of cells on the card
     (SmolLM-135M's 9 heads, 3 KV heads, d_ff and padded vocab split three
     ways) for the same meshless service, through ``EncodedRetriever.
-    retrieve_batch`` (K1-K3): in bf16, the embeddings at cosine >= RAG_COS
+    retrieve_batch`` (K1/K3/WR): in bf16, the embeddings at cosine >= RAG_COS
     to the meshless encoder's and the ids' overlap with the meshless
     run's (``ids``) logged; in fp32 (``Fp32``, both encoders), the ids
     overlapping the meshless retriever's by at least RAG_MESH_OVERLAP.
@@ -3009,7 +3310,7 @@ def lm_mesh_path(dev, card, log) -> None:
     """The LM's serving over a device mesh, every cell on the card
     (``devices=[cuda:0] * n``): ``llama_mesh``, ``dbrx_mesh`` and
     ``flash_mesh``, one after another (the rag path runs ``rag_mesh``,
-    this path's K1-K3 segment, on its service)."""
+    this path's K1, K3 and WR segment, on its service)."""
     import torch
     t = time.time()
     torch.cuda.reset_peak_memory_stats()
@@ -3169,7 +3470,7 @@ def hymba_mesh_retrieval(cfg, params, svc, prompts, preds, ids, dev, card,
     """The hymba retrieval's prompts encoded by the whole model on a
     FMESH_RAG_SHAPE mesh of cells on the card (its 25 / 5 heads
     replicated, FFN and mamba channels split) for the same meshless
-    service, through ``EncodedRetriever.retrieve_batch`` (K1-K3): in
+    service, through ``EncodedRetriever.retrieve_batch`` (K1/K3/WR): in
     bf16 timed, its ids' overlap with the meshless run's (``ids``)
     logged; in fp32 (both encoders), the ids overlapping the meshless
     retriever's by at least RAG_MESH_OVERLAP (the meshless run's
@@ -4637,7 +4938,7 @@ def load_example(name: str):
 
 def example_rag_serve(card, log) -> None:
     """``torch_rag_serve.py --full`` at its defaults on cuda:0 (SmolLM-135M
-    whole, 2,048 documents, 32 queries): the first K1-K3 calls held to
+    whole, 2,048 documents, 32 queries): the first K1, K3 and WR calls held to
     their plain versions, ``retrieve``'s and ``retrieve_batch``'s ids
     checked against the predicate, and the card's embeddings searched
     again by a ``device="cpu"`` service over the same dataset, whose
@@ -4740,7 +5041,7 @@ def example_train_lm(card, log) -> None:
 
 def examples_path(card, log) -> dict:
     """The port's two LM examples on the card, in process, each loaded
-    from its file: ``torch_rag_serve.py`` (K1-K3) and
+    from its file: ``torch_rag_serve.py`` (K1/K3/WR) and
     ``torch_train_lm.py`` (none of K1-K5). The three host examples do no
     card work and are held line for line on the CPU. Returns the path's
     launch counts."""
@@ -4784,7 +5085,10 @@ def run(report_path: str | None) -> int:
     log("kernel_build", s=time.time() - t)
     for name in build.KERNELS:  # registers, shared memory, spills
         log("ptxas", kernel=name, report=build.ptxas_report(name))
-    records, profile = drive_paths(dev, card, log, report_path)
+    with SyncChecked() as synced:
+        records, profile = drive_paths(dev, card, log, report_path)
+    log("sync_checked", dispatches=synced.dispatches,
+        collects=synced.collects)
     if report_path:
         report["profile"] = profile
         report["kernels"] = list(records.values())
@@ -4859,8 +5163,8 @@ def drive_paths(dev, card, log, report_path):
     del ds, index, batches
     torch.cuda.empty_cache()
     by_path["examples"] = examples_path(card, log)
-    # each kernel's launches come from the path it belongs to: K1-K3 from
-    # the search, K4 and K5 from the parity gate
+    # each kernel's launches come from the path it belongs to: K1, K3 and
+    # WR from the search, K2, K4 and K5 from the parity gate
     for name, rec in records.items():
         path = "parity_gate" if name in GATE_KERNELS else "search"
         rec["launches"] = by_path[path].get(name, 0)

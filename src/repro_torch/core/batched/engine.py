@@ -10,13 +10,15 @@ packed pass bitmap in the same pass.
 A filtered search batch (``search_batch``) runs predicate evaluation
 (``filter_eval_batch``, ANDed with the live-row bitmap on a capacity
 slab), then the restart rounds (``atlas_round``: batched anchor selection
-from the ``DeviceAtlas`` + the lockstep walk). The two
-``lax.while_loop``s of the reference become Python loops whose exit
-conditions are read on the host: once per round, and once every
-``HOP_CHECK_EVERY`` walk hops. A hop run after every lane has finished
-changes no output (finished lanes are fully masked), so the checks
-change only how much work is done, never the result; ``stats["syncs"]``
-counts them.
+from the ``DeviceAtlas`` + one walk round, ``ops.walk_round``). As in the
+reference's one fused program, nothing is read on the host inside the
+batch: every round runs, its effect masked on the device when nobody
+seeded, and on the card ``walk_round`` is one kernel launch that walks
+each lane to its own end. ``dispatch`` therefore returns while the device
+is still busy, and ``collect``'s copy of the results is the batch's one
+host sync. On the CPU a round's walk is its plain version, ``walk_batch``
+(the lockstep loop), which reads "is any lane running" on the host every
+``HOP_CHECK_EVERY`` hops; ``stats["syncs"]`` counts those reads.
 
 Vectorization deltas vs the sequential reference (DESIGN.md §3):
 * queues hold only first-seen nodes (a node enters exactly one queue once);
@@ -39,8 +41,7 @@ from repro_torch.core.config import (FnsConfig, WalkConfig,
                                      check_state_config, coerce_config)
 from repro_torch.core.device_atlas import (DeviceAtlas, auto_v_cap,
                                            pack_dnf, pack_predicates,
-                                           resolve_device, table_n_disj,
-                                           words_to_torch)
+                                           resolve_device, table_n_disj)
 from repro_torch.core.predicate import DNF, as_dnf, disjunct_selectivity
 from repro_torch.core.search import FiberIndex
 from repro_torch.core.types import FilterPredicate, Query
@@ -88,13 +89,22 @@ def _eval_passes(metadata, fields, allowed, bounds=None):
 
 def walk_batch(vectors, adjacency, pass_bm, q_vecs, seeds,
                p: BatchedParams, init_results=None):
-    """One lockstep walk round.
+    """One lockstep walk round: the plain version of the ``walk_round``
+    kernel (``ops.walk_round``).
 
     vectors (n, d) f32; adjacency (n, R) i32 (-1 pad); pass_bm
     (Q, ceil(n/32)) int32 packed filter bitmaps; q_vecs (Q, d); seeds
     (Q, S) i32 (-1 pad). Returns dict of results + diagnostics, plus
-    ``syncs``, the host reads of the loop condition. All per-point walk
-    state (visited / in-results / pass) is bitmap-packed.
+    ``syncs``, the host reads of the loop condition, and what the
+    kernel's bound counts: ``dotted``, per lane the neighbour rows some
+    output depends on (valid, and new or passing), summed over hops (the
+    row dots; a lane's distinct such rows, with its seeds, are its
+    ``visited_bm``), and ``expanded``, an (n,) bool of the nodes whose
+    adjacency row some lane read. All per-point walk state (visited /
+    in-results / pass) is bitmap-packed. Lanes never exchange data: a lane's outputs are
+    those it gets walked alone, and stop changing once it terminates (a
+    finished lane is fully masked), so the host reads change only how
+    much work is done.
     """
     n = vectors.shape[0]
     Q = q_vecs.shape[0]
@@ -141,6 +151,8 @@ def walk_batch(vectors, adjacency, pass_bm, q_vecs, seeds,
     hops = full((Q,), 0, i32)
     p1_hops = full((Q,), 0, i32)
     kf = min(p.frontier_width, R)
+    dotted = full((Q,), 0, i32)
+    expanded = full((n,), 0, i32)
     syncs = 0
 
     for t in range(p.max_hops):
@@ -177,6 +189,7 @@ def walk_batch(vectors, adjacency, pass_bm, q_vecs, seeds,
         # ---- expand x (masked for dead queries) ----
         xs = x.clamp(min=0).long()
         nbrs = adjacency[xs]                                    # (Q, R)
+        expanded.index_add_(0, xs, live.to(i32))
         nvalid = (nbrs >= 0) & live[:, None]
         seen = test_bits(visited, nbrs)
         new = nvalid & ~seen
@@ -200,6 +213,7 @@ def walk_batch(vectors, adjacency, pass_bm, q_vecs, seeds,
             torch.where(pass_r, v_n, 0.0).sum(1) / n_pass.clamp(min=1) - vx,
             float("inf"))
         new_filtered = (new & pass_r).sum(1)
+        dotted = dotted + (new | pass_r).sum(1).to(i32)
         stall = torch.where(new_filtered > 0, 0, stall + 1).to(i32)
         neg = drift < 0
         # ---- phase logic ----
@@ -248,18 +262,19 @@ def walk_batch(vectors, adjacency, pass_bm, q_vecs, seeds,
 
     term = torch.where(term == TERM_RUNNING, TERM_MAXHOP, term)
     return dict(res_v=res_v, res_i=res_i, term=term, hops=hops,
-                p1_hops=p1_hops, visited_bm=visited, syncs=syncs)
+                p1_hops=p1_hops, visited_bm=visited, dotted=dotted,
+                expanded=expanded > 0, syncs=syncs)
 
 
 def atlas_round(datlas: DeviceAtlas, vectors, adjacency, pass_bm, passes,
                 q_vecs, fields, allowed, processed, need, res_v, res_i,
                 p: BatchedParams, seed_backend: str, bounds=None):
     """One full restart round for all Q queries: batched anchor selection
-    from the packed atlas, then the lockstep walk. ``pass_bm`` is the
-    packed (Q, ceil(n/32)) int32 filter bitmap the walk carries;
-    ``passes`` is its dense (Q, n) bool unpack for the selection math.
-    Queries with ``need`` false see an all-processed atlas and so get no
-    seeds; a query with no seeds converges on its first walk iteration
+    from the packed atlas, then one walk round (``ops.walk_round``).
+    ``pass_bm`` is the packed (Q, ceil(n/32)) int32 filter bitmap the walk
+    carries; ``passes`` is its dense (Q, n) bool unpack for the selection
+    math. Queries with ``need`` false see an all-processed atlas and so get
+    no seeds; a query with no seeds converges on its first walk iteration
     with its results untouched."""
     gate = processed | ~need[:, None]
     tables = ((fields, allowed) if bounds is None
@@ -268,8 +283,8 @@ def atlas_round(datlas: DeviceAtlas, vectors, adjacency, pass_bm, passes,
         q_vecs, tables, gate, vectors, passes,
         n_seeds=p.n_seeds, c_max=p.c_max, backend=seed_backend,
         disjunct_quota=p.disjunct_quota)
-    out = walk_batch(vectors, adjacency, pass_bm, q_vecs, seeds, p,
-                     init_results=(res_v, res_i))
+    out = ops.walk_round(vectors, adjacency, pass_bm, q_vecs,
+                         seeds.contiguous(), res_v, res_i, p)
     found = (out["res_v"] < INF / 2).sum(dim=1)
     return dict(res_v=out["res_v"], res_i=out["res_i"],
                 processed=processed | used, need=need & (found < p.k),
@@ -280,12 +295,16 @@ def atlas_round(datlas: DeviceAtlas, vectors, adjacency, pass_bm, passes,
 def search_batch(datlas: DeviceAtlas, vectors, adjacency, metadata, q_vecs,
                  fields, allowed, p: BatchedParams, seed_backend: str,
                  valid_bm=None, bounds=None):
-    """A whole filtered search batch: predicate evaluation, then up to
-    ``jump_budget + 1`` restart rounds (each round = ``atlas_round``). A
-    round where nobody seeded is discarded wholesale (it cannot change
-    results) and ends the loop, as does a round after which no query is
-    short of k; both are read on the host in one sync per round.
-    ``rounds`` in the result counts the ``atlas_round`` calls made.
+    """A whole filtered search batch, the reference's fused program:
+    predicate evaluation, then all ``jump_budget + 1`` restart rounds (each
+    round = ``atlas_round``) with no host read between them. A round where
+    nobody seeded is discarded on the device (``torch.where`` on a device
+    scalar: it cannot change results, and every later round then finds the
+    same state and seeds nobody either); a lane no longer short of k gets
+    no seeds, so its walks leave it untouched. ``rounds`` in the result is
+    a device scalar: the rounds the reference's loop runs (it stops after
+    a round where nobody seeded or nobody is short of k). ``syncs`` counts
+    the host reads of the rounds' walks: 0 with the kernel.
 
     ``valid_bm`` (optional, (ceil(n/32),) int32) marks live rows: rows
     with a 0 bit fail every predicate. A capacity slab uses it to keep its
@@ -309,24 +328,25 @@ def search_batch(datlas: DeviceAtlas, vectors, adjacency, metadata, q_vecs,
     res_i = torch.full((Q, p.k), -1, dtype=torch.int32, device=dev)
     hops = torch.zeros(Q, dtype=torch.int64, device=dev)
     walks = torch.zeros(Q, dtype=torch.int64, device=dev)
-    syncs = rounds = 0
+    go = torch.ones((), dtype=torch.bool, device=dev)
+    rounds = torch.zeros((), dtype=torch.int32, device=dev)
+    syncs = 0
     for _ in range(p.jump_budget + 1):
         out = atlas_round(datlas, vectors, adjacency, pass_bm, passes,
                           q_vecs, fields, allowed, processed, need,
                           res_v, res_i, p=p, seed_backend=seed_backend,
                           bounds=bounds)
-        syncs += out["syncs"] + 1
-        rounds += 1
-        any_seeded, any_need = torch.stack(
-            [out["seeded"].any(), out["need"].any()]).tolist()
-        if not any_seeded:
-            break
-        res_v, res_i = out["res_v"], out["res_i"]
-        processed, need = out["processed"], out["need"]
-        hops = hops + out["hops"]
-        walks = walks + out["seeded"].to(torch.int64)
-        if not any_need:
-            break
+        syncs += out["syncs"]
+        seeded = out["seeded"]
+        any_seeded = seeded.any()
+        res_v = torch.where(any_seeded, out["res_v"], res_v)
+        res_i = torch.where(any_seeded, out["res_i"], res_i)
+        processed = torch.where(any_seeded, out["processed"], processed)
+        need = torch.where(any_seeded, out["need"], need)
+        hops = hops + torch.where(any_seeded, out["hops"], 0)
+        walks = walks + (seeded & any_seeded)
+        rounds = rounds + go.to(torch.int32)
+        go = go & any_seeded & need.any()
     return dict(res_v=res_v, res_i=res_i, hops=hops, walks=walks,
                 syncs=syncs, rounds=rounds)
 
@@ -376,11 +396,24 @@ def pack_query_batch(queries: list[Query], *, v_cap: int,
     interval table when any clause is an interval (its disjuncts packed
     rarest-first), else None — the invariant is
     ``bounds is not None ⟹ fields.ndim == 3``. Value bitmaps are int32
-    words."""
+    words.
+
+    On CUDA each array is staged through pinned host memory and copied
+    with ``non_blocking=True``: a blocking copy from pageable memory would
+    wait for everything already queued on the stream (the batch before
+    this one), so nothing could overlap. PyTorch's pinned-memory allocator
+    holds each staging buffer until its copy has run on the stream, even
+    once the tensor here is dropped."""
     device = resolve_device(device)
 
     def t(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+        host = torch.from_numpy(np.ascontiguousarray(x))
+        if device.type != "cuda":
+            return host.to(device)
+        return host.pin_memory().to(device, non_blocking=True)
+
+    def words(x):  # numpy uint32 words -> int32 words with the same bits
+        return t(np.asarray(x, np.uint32).view(np.int32))
 
     q_vecs = t(np.stack([q.vector for q in queries]).astype(np.float32))
     dnfs = [_compile_query_dnf(q.predicate, vocab_sizes, v_cap)
@@ -394,7 +427,7 @@ def pack_query_batch(queries: list[Query], *, v_cap: int,
         n_cl = max((p.n_clauses for p in preds), default=0)
         f_np, a_np = pack_predicates(preds, max_clauses=clause_dim(n_cl),
                                      v_cap=v_cap)
-        return q_vecs, t(f_np), words_to_torch(a_np, device), None
+        return q_vecs, t(f_np), words(a_np), None
     dnfs = [as_dnf(p) for p in dnfs]
     if has_iv:
         # rare disjuncts first (union semantics are order-independent;
@@ -408,7 +441,7 @@ def pack_query_batch(queries: list[Query], *, v_cap: int,
     f_np, a_np, b_np, _ = pack_dnf(dnfs, max_disjuncts=disjunct_dim(d_max),
                                    max_clauses=clause_dim(n_cl), v_cap=v_cap)
     bounds = t(b_np) if has_iv else None
-    return q_vecs, t(f_np), words_to_torch(a_np, device), bounds
+    return q_vecs, t(f_np), words(a_np), bounds
 
 
 def _fence_pack(eng, queries: list[Query]):
@@ -440,21 +473,25 @@ def _to_gids(ids: list[np.ndarray], gids) -> list[np.ndarray]:
 
 def fetch_results(out: dict, q_n: int):
     """A searched batch's results on the host, by one device-to-host copy
-    (results, walks and hops packed into one int32 tensor): the ids of
-    each query's found rows (``res_v < INF / 2``) as numpy arrays, and
-    stats with per-query ``walks``/``hops`` and ``syncs``, the host reads
-    the batch took, this copy included."""
+    (results, walks, hops and restart rounds packed into one int32
+    tensor): the ids of each query's found rows (``res_v < INF / 2``) as
+    numpy arrays, and stats with per-query ``walks``/``hops``, ``syncs``,
+    the host reads the batch took, this copy included, and ``rounds``."""
     k = out["res_v"].shape[1]
+    Q = out["res_v"].shape[0]
     host = torch.cat([out["res_v"].view(torch.int32), out["res_i"],
                       out["walks"].to(torch.int32)[:, None],
-                      out["hops"].to(torch.int32)[:, None]],
+                      out["hops"].to(torch.int32)[:, None],
+                      out["rounds"].to(torch.int32).expand(Q, 1)],
                      dim=1).cpu().numpy()
     res_v = np.ascontiguousarray(host[:, :k]).view(np.float32)
     res_i = host[:, k:2 * k]
     ids = [res_i[i][res_v[i] < INF / 2] for i in range(q_n)]
-    return ids, {"walks": host[:q_n, 2 * k].astype(np.int32),
-                 "hops": host[:q_n, 2 * k + 1].astype(np.int64),
-                 "syncs": out["syncs"] + 1}
+    stats = {"walks": host[:q_n, 2 * k].astype(np.int32),
+             "hops": host[:q_n, 2 * k + 1].astype(np.int64),
+             "syncs": out["syncs"] + 1,
+             "rounds": int(host[0, 2 * k + 2]) if Q else 0}
+    return ids, stats
 
 
 def _place(x: np.ndarray, device, dtype=None) -> torch.Tensor:
@@ -489,9 +526,13 @@ class BatchedEngine:
     ``dispatches`` counts search calls where the reference counts its
     jitted calls: one per ``dispatch`` (so one per ``search`` batch), and
     in ``search_hostloop`` one for the predicate evaluation plus one per
-    restart round. It counts calls, not host syncs: ``search`` reads its
-    loop exits on the host (``stats["syncs"]``, several per batch), where
-    the reference's fused program syncs once.
+    restart round. On the card a batch syncs once, as the reference's
+    fused program does (``stats["syncs"]`` 1: ``collect``'s copy).
+
+    A publish (``_refresh_from_slab``, ``delete_batch``) binds new tensors
+    and never writes in place into one an in-flight batch reads: that
+    batch keeps its own references, and the allocator reuses their memory
+    only after the stream has run past it.
     """
 
     def __init__(self, index: FiberIndex, config=None, device=None,
@@ -701,14 +742,13 @@ class BatchedEngine:
                                 device=self.device)
 
     def dispatch(self, queries: list[Query]) -> dict:
-        """Fenced pack + the search; returns a token for ``collect``. The
-        token carries the results as device tensors and snapshots the
-        global-id map and the publish generation, so a compaction that
-        remaps rows before ``collect`` cannot mistranslate the batch.
-
-        Not asynchronous yet: the search's loop exits are read on the host
-        (``stats["syncs"]``), so this returns only once the batch's rounds
-        are done; only the copy of the results waits for ``collect``."""
+        """Fenced pack + the search, queued on the device without a host
+        sync; returns a token for ``collect``. On the card this returns
+        while the device is still searching, so the host can stage the
+        next batch meanwhile (``serve/pipeline.py``). The token carries
+        the results as device tensors and snapshots the global-id map and
+        the publish generation, so a compaction that remaps rows before
+        ``collect`` cannot mistranslate the batch."""
         (q_vecs, fields, allowed, bounds), gen = _fence_pack(self, queries)
         out = search_batch(self.datlas, self.vectors, self.adjacency,
                            self.metadata, q_vecs, fields, allowed, self.p,
@@ -722,10 +762,11 @@ class BatchedEngine:
 
     def collect(self, token: dict):
         """Finish a ``dispatch`` token: the batch's one device-to-host copy
-        (results, walks and hops packed into one int32 tensor) and the
-        result/stat post-processing. Returns (ids per query as numpy
+        (results, walks, hops and rounds packed into one int32 tensor) and
+        the result/stat post-processing. Returns (ids per query as numpy
         arrays, stats) with per-query ``walks``/``hops``, ``syncs`` (the
-        host reads the batch took, the final copy included) and
+        host reads the batch took, the final copy included), ``rounds``
+        (the restart rounds the reference's loop runs) and
         ``generation``, the publish generation it was dispatched against."""
         ids, stats = fetch_results(token["out"], token["q_n"])
         stats["generation"] = token["generation"]
@@ -739,10 +780,11 @@ class BatchedEngine:
 
     def search_hostloop(self, queries: list[Query]):
         """The reference's per-round host loop, which it keeps as the
-        exact-parity baseline for its fused ``search``. Here ``search``
-        already is that loop, so this runs it and keeps the reference's
-        accounting: one dispatch for the predicate evaluation plus one per
-        restart round, where ``search`` counts one per batch."""
-        token = self.dispatch(queries)  # counts the evaluation
-        self.dispatches += token["out"]["rounds"]
-        return self.collect(token)
+        exact-parity baseline for its fused ``search``. Its rounds give
+        what the fused search's masked rounds give, so this runs ``search``
+        and keeps the reference's accounting: one dispatch for the
+        predicate evaluation plus one per restart round (counted on the
+        device), where ``search`` counts one per batch."""
+        ids, stats = self.collect(self.dispatch(queries))  # counts the eval
+        self.dispatches += stats["rounds"]
+        return ids, stats

@@ -467,10 +467,12 @@ class ShardedEngine:
         through ``global_ids`` (-1 kept), the per-shard top-ks copied to
         the lane's lead cell and merged there; then the lanes' results
         concatenated on ``self.device``. Hops and walks sum over shards,
-        syncs over every search."""
+        syncs over every search; ``rounds`` (a device scalar) is the most
+        restart rounds any search ran."""
         q_n = packed[0].shape[0]
         out_v, out_i, out_h, out_w = [], [], [], []
         syncs = 0
+        rounds = torch.zeros((), dtype=torch.int32, device=self.device)
         for lane in range(lanes):
             rows = (self._sh.query_block(q_n, lane) if lanes > 1
                     else slice(None))
@@ -493,6 +495,7 @@ class ShardedEngine:
                 hops = hops + out["hops"].to(lead)
                 walks = walks + out["walks"].to(lead)
                 syncs += out["syncs"]
+                rounds = torch.maximum(rounds, out["rounds"].to(self.device))
             res_v, res_i = merge_topk(torch.stack(per_v),
                                       torch.stack(per_i), self.p.k)
             out_v.append(res_v.to(self.device))
@@ -501,7 +504,7 @@ class ShardedEngine:
             out_w.append(walks.to(self.device))
         return dict(res_v=torch.cat(out_v), res_i=torch.cat(out_i),
                     hops=torch.cat(out_h), walks=torch.cat(out_w),
-                    syncs=syncs)
+                    syncs=syncs, rounds=rounds)
 
     def dispatch(self, queries: list[Query], seed: int = 0) -> dict:
         """Fenced pack + the search; returns a token for ``collect``. On a

@@ -36,7 +36,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("filter_eval", "fiber_expand", "masked_cosine_topk")
+KERNELS = ("filter_eval", "fiber_expand", "masked_cosine_topk", "walk_round")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)

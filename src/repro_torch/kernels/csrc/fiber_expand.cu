@@ -36,25 +36,15 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "gather_dot.cuh"
 #include "ptx.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using gather::copy_vec;
+using gather::kFull;
 constexpr int kMaxWalkThreads = 128;
 constexpr int kSlots = 2;  // row buffers per warp
-
-// d floats from src to dst (shared), copy t of nt: 16-byte copies when
-// vec4, else 4-byte ones
-__device__ __forceinline__ void copy_vec(float* dst, const float* src, int d,
-                                         int vec4, int t, int nt) {
-  if (vec4) {
-    for (int i = t; i < d / 4; i += nt)
-      ptx::copy16(dst + 4 * i, src + 4 * i, 16);
-  } else {
-    for (int i = t; i < d; i += nt) ptx::copy4(dst + i, src + i, 4);
-  }
-}
 
 // grid (ceil(R / span), Q), blockDim = 32 * warps (<= 128); dynamic
 // shared memory (1 + kSlots * warps) * ceil4(d) floats: the query, then
@@ -153,20 +143,8 @@ __global__ void __launch_bounds__(kMaxWalkThreads) fiber_walk_kernel(
       ptx::commit();
       ptx::wait_group<kSlots - 1>();
       __syncwarp();
-      const float* cur = slots + (i % kSlots) * dp;
-      float acc = 0.f;
-      if (vec4) {
-        const float4* a4 = reinterpret_cast<const float4*>(cur);
-        const float4* b4 = reinterpret_cast<const float4*>(s_q);
-        for (int c = lane; c < d / 4; c += 32) {
-          const float4 a = a4[c];
-          const float4 b = b4[c];
-          acc += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-        }
-      } else {
-        for (int c = lane; c < d; c += 32) acc += cur[c] * s_q[c];
-      }
-      for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
+      const float acc =
+          gather::warp_dot(slots + (i % kSlots) * dp, s_q, d, vec4, lane);
       if (lane == 0) {
         if (kWalk) sims[qr + s_pos[j]] = acc;
         sims_pass[qr + s_pos[j]] = s_pass[j] ? acc : -INFINITY;

@@ -16,6 +16,7 @@ from repro_torch.kernels import fiber_expand as _fe
 from repro_torch.kernels import filter_eval as _fv
 from repro_torch.kernels import masked_cosine_topk as _mct
 from repro_torch.kernels import ref
+from repro_torch.kernels import walk_round as _wr
 
 # module-level names derived from the one config origin (core/config.py)
 MAX_CLAUSES = KernelConfig().max_clauses
@@ -41,6 +42,18 @@ def fiber_expand_walk(q_vecs, corpus, ids, bitmap):
     if _on_cuda(corpus, "fiber_expand_walk"):
         return _fe.fiber_expand_walk(q_vecs, corpus, ids, bitmap)
     return ref.fiber_expand_walk(q_vecs, corpus, ids, bitmap)
+
+
+def walk_round(vectors, adjacency, pass_bm, q_vecs, seeds, res_v, res_i, p):
+    """One restart round of the walk from carried results (res_v, res_i):
+    the ``walk_round`` kernel on CUDA tensors; on the CPU its plain
+    version, ``walk_batch``, which reads its loop exit on the host."""
+    if _on_cuda(vectors, "walk_round"):
+        return _wr.walk_round(vectors, adjacency, pass_bm, q_vecs, seeds,
+                              res_v, res_i, p)
+    from repro_torch.core.batched.engine import walk_batch
+    return walk_batch(vectors, adjacency, pass_bm, q_vecs, seeds, p,
+                      init_results=(res_v, res_i))
 
 
 def filter_eval_batch(metadata, fields, allowed, n_disj=None, bounds=None):

@@ -358,10 +358,9 @@ class RetrievalService:
                        bucket: bool = True):
         """First half of ``query_batch`` (the serve pipeline's staging
         stage, DESIGN.md §13): batch forming + predicate compilation +
-        fenced pack + the engine's ``dispatch``. The port's ``dispatch``
-        reads the search's loop exits on the host, so this returns once
-        the batch is searched; only the results' copy waits for
-        ``collect_batch``. Returns an opaque ticket for ``collect_batch``
+        fenced pack + the engine's ``dispatch``, which on the card queues
+        the search without a host sync, so this returns while the device
+        is still searching. Returns an opaque ticket for ``collect_batch``
         (None for an empty batch)."""
         formed = self._form_batch(vectors, predicates, bucket=bucket)
         if formed is None:

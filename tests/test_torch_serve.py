@@ -1,10 +1,12 @@
 """The port's serving layer on the CPU (``RetrievalService(device="cpu")``
 and ``ServePipeline``): the reference's serving cases that need no
-language model, its pipeline cases (ordering, isolation, bucket targets,
-unit-basis pads, stat slicing on both engine routes, the publish fence) —
-with no claim of overlap, which the port's pipeline does not have yet —
-and ``query``/``query_batch`` held to the reference service's results on
-the conjunctive, OR and range sweeps and across a document lifecycle."""
+language model, its pipeline cases (ordering, overlap with injected
+latency, isolation, bucket targets, unit-basis pads, stat slicing on both
+engine routes, the publish fence), the pipeline's ``_smoke``, and
+``query``/``query_batch`` held to the reference service's results on the
+conjunctive, OR and range sweeps and across a document lifecycle. On the
+card the pipeline's overlap in time is checked by ``chip_smoke.py`` (the
+stream still busy when ``dispatch`` returns)."""
 import numpy as np
 import pytest
 
@@ -257,6 +259,41 @@ def test_pipeline_stage_order_with_injected_latency(pipe_svc):
         ("dispatch", 0), ("dispatch", 1), ("collect", 0), ("collect", 1)]
     times = [t for _, _, t in pipe.events]
     assert times == sorted(times)
+
+
+def test_pipeline_overlap_with_injected_latency(pipe_svc):
+    """The reference's case: with latency injected into the pre-dispatch
+    window, batch 0's collect lands after batch 1's (delayed) dispatch,
+    and the sync waited out batch 1's injected staging latency."""
+    import time
+    _, svc = pipe_svc
+    rng = np.random.default_rng(2)
+    pipe = ServePipeline(svc)
+    delay = 0.05
+    faults.arm("serve.pre-dispatch", lambda: time.sleep(delay))
+    try:
+        for i in range(8):                       # 2 buckets of 4
+            pipe.submit(rng.standard_normal(16).astype(np.float32),
+                        FilterPredicate.make({0: [i % 5]}))
+        pipe.pump()                              # stage batch 0
+        pipe.pump()                              # stage batch 1, sync 0
+        pipe.drain()
+    finally:
+        faults.disarm("serve.pre-dispatch")
+    d_t = {no: t for e, no, t in pipe.events if e == "dispatch"}
+    c_t = {no: t for e, no, t in pipe.events if e == "collect"}
+    assert pipe.batches == 2
+    assert d_t[1] < c_t[0], (d_t, c_t)           # staging precedes the sync
+    assert c_t[0] - d_t[0] >= delay
+
+
+def test_pipeline_smoke_on_cpu(capsys):
+    """``serve/pipeline.py:_smoke`` on the host: 20 tickets in more than
+    one batch, ids equal to ``query_batch``, batch 1 staged before batch
+    0's collect."""
+    from repro_torch.serve.pipeline import _smoke
+    _smoke(device="cpu")
+    assert "pipeline smoke OK" in capsys.readouterr().out
 
 
 def test_pipeline_isolates_bad_ticket(pipe_svc):

@@ -30,11 +30,12 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-WRAPPERS = ("filter_eval", "fiber_expand", "masked_cosine_topk")
+WRAPPERS = ("filter_eval", "fiber_expand", "masked_cosine_topk", "walk_round")
 
 
 def load_other(src: pathlib.Path) -> dict:
-    """The other checkout's wrapper modules, bound to its own build."""
+    """The other checkout's wrapper modules, bound to its own build (those
+    it has: a checkout from before ``walk_round`` keeps this one's)."""
     kdir = src / "repro_torch" / "kernels"
 
     def load(name, path):
@@ -46,6 +47,8 @@ def load_other(src: pathlib.Path) -> dict:
     build = load("other_kernels_build", kdir / "build.py")
     mods = {}
     for name in WRAPPERS:
+        if not (kdir / f"{name}.py").exists():
+            continue
         mod = load(f"other_kernels_{name}", kdir / f"{name}.py")
         mod.build = build  # the wrappers look `build` up at call time
         mods[name] = mod
@@ -70,17 +73,19 @@ def main() -> int:
     from repro_torch.core.batched.engine import BatchedEngine
     from repro_torch.core.config import FnsConfig, WalkConfig
     from repro_torch.kernels import fiber_expand, filter_eval
-    from repro_torch.kernels import masked_cosine_topk, ops
+    from repro_torch.kernels import masked_cosine_topk, ops, walk_round
 
     sides = {"A": {"filter_eval": filter_eval, "fiber_expand": fiber_expand,
-                   "masked_cosine_topk": masked_cosine_topk},
+                   "masked_cosine_topk": masked_cosine_topk,
+                   "walk_round": walk_round},
              "B": load_other(pathlib.Path(args.other).resolve())}
 
     def use(side):
-        mods = sides[side]
+        mods = {**sides["A"], **sides[side]}
         ops._fv = mods["filter_eval"]
         ops._fe = mods["fiber_expand"]
         ops._mct = mods["masked_cosine_topk"]
+        ops._wr = mods["walk_round"]
 
     card = chip_smoke.card_line()
     out = []
