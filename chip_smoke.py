@@ -557,7 +557,11 @@ def round_args(datlas, vectors, adjacency, q_vecs, tables, pass_bm, p,
 def round_case(label, args, flush=None) -> dict:
     """walk_round and walk_batch on one round's arguments: held by
     ``check_round``, each timed where ``flush`` is given (the kernel 20
-    runs, the plain loop 3), with the bound (``round_work``)."""
+    runs, the plain loop 3), with the bound (``round_work``), both
+    versions' longest lane (max hops), the kernel's ms a hop of its
+    longest lane (its time over its max hops: the longest lane sets it)
+    and the launch plan (ring slots, bytes and blocks an SM, grid,
+    cluster size)."""
     import torch
     from repro_torch.core.batched.engine import walk_batch
     from repro_torch.kernels import walk_round as wr
@@ -566,12 +570,17 @@ def round_case(label, args, flush=None) -> dict:
         return walk_batch(*args[:5], args[7], init_results=args[5:7])
 
     want = plain()
-    rec = check_round(label, wr.walk_round(*args), want)
+    got = wr.walk_round(*args)
+    rec = check_round(label, got, want)
     torch.cuda.synchronize()
     rec.update(round_work(args, want))
+    rec.update(plain_max_hops=int(want["hops"].max()),
+               max_hops=int(got["hops"].max()),
+               plan=wr.plan_of(args[3], args[0].shape[0])._asdict())
     if flush is not None:
         rec.update(ms=cuda_ms(lambda: wr.walk_round(*args), 20, flush),
                    plain_ms=cuda_ms(plain, 3, flush), library_ms=None)
+        rec["ms_per_hop_longest"] = rec["ms"] / max(1, rec["max_hops"])
         rec = ratios(rec)
     return rec
 

@@ -1,5 +1,6 @@
 // Inline-PTX helpers shared by the kernels: asynchronous global -> shared
-// copies (cp.async, sm_80+) and the 3xTF32 tensor-core product
+// copies (cp.async, sm_80+), Hopper's bulk copies completed on mbarriers
+// and named barriers (sm_90), and the 3xTF32 tensor-core product
 // (mma.sync m16n8k8 tf32 with fp32 accumulation).
 #pragma once
 
@@ -41,6 +42,73 @@ __device__ __forceinline__ void commit() {
 template <int N>
 __device__ __forceinline__ void wait_group() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// An mbarrier in shared memory expecting ``count`` arrivals a phase. Make
+// the initialisation visible (fence_mbar_init, then a block barrier)
+// before any thread uses it.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also expects ``bytes`` more of bulk-copy transactions
+// in the current phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Wait until the phase of parity ``parity`` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ``bytes`` (a multiple of 16, both addresses 16-byte aligned) global ->
+// shared by the Tensor Memory Accelerator, one instruction; the copy
+// completes its bytes on ``bar``.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Named barrier ``id`` (1..15; 0 is __syncthreads) over ``n`` threads, a
+// multiple of 32: sync waits for all n, arrive counts the caller and goes
+// on. Writes before either are visible to the threads that sync after.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // x rounded to TF32 (10 mantissa bits), round to nearest with ties away
