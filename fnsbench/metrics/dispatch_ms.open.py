@@ -1,0 +1,7 @@
+"""Host ms until ``dispatch_batch`` returns, mean over the window's
+batches before the traced stretch (open loops)."""
+from fnsbench import reduce
+
+
+def read(rec):
+    return reduce.dispatch_ms(rec, closed=False)
